@@ -1,0 +1,688 @@
+"""SlabController — the online half of the paper's loop.
+
+The paper closes a loop: *analyse the pattern of sizes previously
+entered, then re-configure the slab classes*. `SlabController` is that
+loop as a reusable component shared by every allocator in this repo
+(`repro_torch.memcached.SlabAllocator` in this port): it owns the live
+traffic sketch (:class:`~repro_torch.core.observe.DecayedSizeHistogram`,
+or :class:`~repro_torch.core.observe.DeviceSizeSketch` on the device
+path), detects when the
+schedule has gone stale (drift of the sketch vs. the fitting-time
+reference histogram), and decides whether a refit pays for itself before
+approving one.
+
+Decision pipeline, run every ``check_every`` observations:
+
+1. **drift gate** — ``histogram_distance(reference, live)`` must exceed
+   ``drift_threshold`` (hysteresis part 1: small wobbles never trigger).
+2. **cooldown** — at least ``min_items_between_refits`` observations must
+   have passed since the last approved refit (hysteresis part 2: no
+   refit storms while a phase transition is in flight).
+3. **candidate frontier** — refit via ``SlabPolicy`` on the live sketch,
+   then score {current, refit, covering-default} schedules in ONE launch
+   of the CUDA kernel ``repro_torch.kernels.ops.waste_eval`` on
+   ``ControllerConfig.torch_device`` (its plain PyTorch version on the
+   CPU).
+4. **improvement gate** — the winner must beat the current schedule by
+   ``min_rel_improvement`` (hysteresis part 3: ignore marginal wins).
+5. **cost model** — reconfiguring a live cache is not free: the consumer
+   reports predicted migration/eviction bytes via ``cost_bytes_fn`` (for
+   `SlabAllocator.reconfigure` that is the resident bytes of victim
+   classes). The refit is approved only when the predicted waste savings
+   over ``amortization_windows`` sketch-windows of future traffic exceed
+   ``cost_weight`` times that cost.
+
+Approved refits update the controller's schedule and reset the reference
+histogram to the fitting snapshot; the *consumer* applies the new chunks
+to its own storage (`reconfigure` / `set_classes`).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, List, Optional, Tuple
+
+import numpy as np
+
+import torch
+
+from repro_torch.analysis.guards import deliberate_sync
+from repro_torch.analysis.registry import hot_path
+from repro_torch.core.distribution import PAGE_SIZE
+from repro_torch.core.observe import (DecayedSizeHistogram, DeviceSizeSketch,
+                                      histogram_distance,
+                                      histogram_distance_device)
+from repro_torch.kernels import ops
+
+
+@dataclasses.dataclass
+class ControllerConfig:
+    """Knobs of the observe → detect → refit → reconfigure loop."""
+
+    k: Optional[int] = None              # class budget (None: len(chunks))
+    check_every: int = 2000              # observations between drift checks
+    half_life: Optional[float] = None    # sketch half-life in observations
+    #                                      (None: 2*check_every; inf: no decay)
+    drift_threshold: float = 0.15        # min distance to consider a refit
+    drift_metric: str = "l1"             # "l1" | "emd"
+    min_items_between_refits: int = 4000  # cooldown after an approved refit
+    min_rel_improvement: float = 0.02    # winner must beat current by this
+    # The cost model compares two different kinds of bytes: predicted
+    # waste savings accrue over ``amortization_windows`` sketch-masses of
+    # FUTURE traffic (memory held hole-free, again and again), while
+    # migration cost is paid ONCE (victims are evicted and at worst
+    # refetched — and under drifted traffic the victim classes hold the
+    # stale distribution, whose re-reference probability is low).
+    # ``cost_weight`` is the explicit exchange rate; 1.0 treats one
+    # evicted byte as as expensive as one never-saved waste byte
+    # (maximally refit-averse), drift scenarios where old items go cold
+    # typically want 0.05-0.25.
+    amortization_windows: float = 4.0    # future windows that repay the cost
+    cost_weight: float = 1.0             # migration byte : waste byte rate
+    method: str = "dp"                   # SlabPolicy fit method
+    page_size: int = PAGE_SIZE
+    min_chunk: int = 48
+    align: int = 1                       # chunk quantization grid (tokens/B)
+    max_bins: int = 1 << 14              # sketch bin budget
+    # Device-resident observe path: the sketch is a DeviceSizeSketch
+    # (dense decayed bucket histogram updated by the sketch_window CUDA
+    # kernel, one launch per observe_many batch) and the drift gate runs
+    # on device via histogram_distance_device — the sketch is only
+    # materialized on host when a refit is actually being evaluated.
+    device: bool = False                 # device-resident observe sketch
+    device_buckets: int = 1 << 13        # dense bucket count
+    device_bucket_width: int = 1         # bucket grid (serving: align)
+    # Single-launch observe windows: observe_many batches buffer on
+    # host and the whole cadence window folds into the sketch in ONE
+    # fused dispatch at the drift check — which also emits the drift
+    # scalar, so a window costs 1 dispatch + (at most) 1 scalar sync.
+    # False restores the one-launch-per-batch device path.
+    fused_observe: bool = True           # device path: buffer + fuse
+    # Where the sketch, the frontier scoring and the policy's searches
+    # run: "cuda" launches the hand-written kernels; "cpu" runs their
+    # plain PyTorch versions (the tests). "cuda" without CUDA raises.
+    torch_device: str = "cuda"
+    # Predictive refit seam: a DemandForecaster makes the drift gate
+    # fire on the FORECAST mixture — when the live sketch is still
+    # covered but the forecaster (periodicity detected over the ring of
+    # per-check sketch snapshots) says the mixture at +forecast_horizon
+    # checks has drifted past the threshold, candidate schedules are
+    # scored against a live/forecast blend and the winner is
+    # pre-positioned before the peak. None or forecast.Reactive keeps
+    # today's reactive behaviour bit-for-bit (no recording, no extra
+    # syncs, identical decisions). Anti-thrash hysteresis: predictive
+    # refits share the cooldown, must clear min_rel_improvement on the
+    # BLEND (a wrong forecast is diluted by the live half), and need
+    # forecast_min_confidence autocorrelation.
+    forecast: Optional[object] = None    # DemandForecaster | Reactive | None
+    forecast_horizon: int = 1            # checks of lead time
+    forecast_min_confidence: float = 0.35  # autocorr gate for predictive
+    forecast_blend: float = 0.5          # forecast share of scoring mixture
+    forecast_stream: Optional[str] = None  # stream key in a shared forecaster
+
+
+@dataclasses.dataclass
+class RefitDecision:
+    """One drift-check verdict (returned whether or not a refit happened)."""
+
+    approved: bool
+    reason: str                      # "refit" | why it was declined
+    drift: float
+    chunks: Optional[np.ndarray]     # winning schedule (approved or not)
+    current_waste: int               # exact waste of current chunks on sketch
+    candidate_waste: int             # exact waste of winner on sketch
+    predicted_savings: float         # bytes saved over amortization horizon
+    predicted_cost: float            # weighted migration bytes
+    at_observation: int              # controller clock when decided
+    predictive: bool = False         # decided on the FORECAST mixture
+    forecast_drift: float = 0.0      # distance(reference, forecast mixture)
+
+
+@dataclasses.dataclass
+class ScoreRequest:
+    """A candidate frontier whose gates all passed, waiting for waste
+    scores (the seam the reference's arbiter uses to batch many tenants'
+    frontiers into one launch).
+
+    Produced by :meth:`SlabController.begin_check`; hand the scores for
+    ``rows`` (row 0 is the current schedule) to
+    :meth:`SlabController.finish_check` to complete the decision.
+    """
+
+    rows: List[np.ndarray]           # candidate schedules, row 0 = current
+    support: np.ndarray              # histogram the frontier is scored on
+    freqs: np.ndarray
+    page_size: int
+    drift: float
+    cost_bytes_fn: Optional[Callable[[np.ndarray], float]]
+    predictive: bool = False
+    forecast_drift: float = 0.0
+    new_reference: object = None     # blend reference (predictive path)
+
+
+def device_sketch_kwargs(config: ControllerConfig) -> dict:
+    """The :class:`~repro_torch.core.observe.DeviceSizeSketch`
+    constructor kwargs a controller with ``config`` uses."""
+    half_life = config.half_life
+    if half_life is None:
+        half_life = 2.0 * config.check_every
+    if not np.isfinite(half_life):
+        half_life = None        # undecayed: full-history histogram
+    return dict(half_life=half_life, num_buckets=config.device_buckets,
+                bucket_width=config.device_bucket_width,
+                window=config.fused_observe,
+                torch_device=config.torch_device)
+
+
+def _quantize_up(chunks: np.ndarray, align: int) -> np.ndarray:
+    chunks = np.asarray(chunks, dtype=np.int64)
+    if align > 1:
+        chunks = ((chunks + align - 1) // align) * align
+    return np.unique(chunks)
+
+
+def _pad_rows(rows: List[np.ndarray]) -> np.ndarray:
+    """Stack schedules of different lengths into one (B, K) batch by
+    repeating each row's top chunk — duplicate classes are waste-neutral,
+    so padding does not change any row's score."""
+    k = max(len(r) for r in rows)
+    out = np.empty((len(rows), k), dtype=np.int64)
+    for i, r in enumerate(rows):
+        out[i, :len(r)] = r
+        out[i, len(r):] = r[-1]
+    return out
+
+
+def _score_frontier(rows: List[np.ndarray], support: np.ndarray,
+                    freqs: np.ndarray, *, page_size: int,
+                    torch_device) -> np.ndarray:
+    """One ``waste_eval`` launch scoring the candidate frontier on
+    ``torch_device``. A failed launch raises; nothing falls back."""
+    dev = torch.device(torch_device)
+    batch = torch.as_tensor(_pad_rows(rows), dtype=torch.int32, device=dev)
+    scores = ops.waste_eval(
+        batch, torch.as_tensor(support, dtype=torch.int32, device=dev),
+        torch.as_tensor(freqs, dtype=torch.float32, device=dev),
+        page_size=page_size)
+    with deliberate_sync("controller.frontier-scores"):
+        return scores.cpu().numpy().astype(np.float64)
+
+
+class SlabController:
+    """Drift-aware refit controller over a live size sketch.
+
+    One instance per allocator: feed every observed
+    size through :meth:`observe`/:meth:`observe_many`, call
+    :meth:`maybe_refit` on the hot path (cheap between checks), and
+    apply ``decision.chunks`` to your storage when a decision comes
+    back approved. The full gate pipeline is described in the module
+    docstring; every verdict is kept in ``self.decisions``.
+
+    Attributes:
+        chunks:    the schedule the controller currently believes in
+                   (consumers re-sync via :meth:`set_chunks` after
+                   quantizing/tailing the deployed schedule).
+        sketch:    the live :class:`DecayedSizeHistogram` (a
+                   :class:`DeviceSizeSketch` when ``config.device``).
+        reference: fitting-time histogram the drift detector compares
+                   against (None until the first check adopts one) — a
+                   ``(support, weights)`` pair on the host path, a dense
+                   device weight tensor when ``config.device`` is set.
+        n_checks / n_refits / last_drift: loop telemetry.
+    """
+
+    def __init__(self, chunk_sizes, *,
+                 config: Optional[ControllerConfig] = None,
+                 policy=None,
+                 reference: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+                 sketch=None):
+        self.config = config or ControllerConfig()
+        self.chunks = np.unique(np.asarray(chunk_sizes, dtype=np.int64))
+        if self.chunks.size == 0:
+            raise ValueError("need at least one slab class")
+        self._device = bool(self.config.device)
+        if sketch is not None:
+            # Injected sketch (e.g. one carried over from the reference
+            # by repro_torch.convert) — must match the config's path.
+            self.sketch = sketch
+        elif self._device:
+            self.sketch = DeviceSizeSketch(**device_sketch_kwargs(
+                self.config))
+        else:
+            half_life = device_sketch_kwargs(self.config)["half_life"]
+            self.sketch = DecayedSizeHistogram(
+                half_life=half_life, max_bins=self.config.max_bins)
+        self._policy = policy
+        # Predictive seam: with an active forecaster, every drift check
+        # records the live sketch as one window of this controller's
+        # stream; a Reactive (or absent) forecaster short-circuits every
+        # forecast code path so the reactive pipeline is untouched.
+        self.forecaster = self.config.forecast
+        self._forecast_on = bool(getattr(self.forecaster, "active", False))
+        self._stream = (self.config.forecast_stream
+                        or f"controller-{id(self):x}")
+        self.n_predictive_refits = 0
+        # Fitting-time histogram the drift detector compares against.
+        # None until the first check (or refit) establishes one.
+        self.reference = reference
+        self._since_check = 0
+        self._last_refit_at = 0
+        self.n_refits = 0
+        self.n_checks = 0
+        self.last_drift = 0.0
+        self.decisions: List[RefitDecision] = []
+        # External-event timeline: (observation clock, label) marks fed
+        # by the torture harness (chaos injections) or an operator
+        # (deploys, failovers). Purely diagnostic — never gates.
+        self.events: List[Tuple[int, str]] = []
+
+    # -- shared policy -------------------------------------------------------
+    @property
+    def policy(self):
+        if self._policy is None:
+            from repro_torch.core.slab_policy import SlabPolicy
+            self._policy = SlabPolicy(page_size=self.config.page_size,
+                                      min_chunk=self.config.min_chunk,
+                                      torch_device=self.config.torch_device)
+        return self._policy
+
+    @property
+    def n_observed(self) -> int:
+        return self.sketch.n_observed
+
+    def set_chunks(self, chunk_sizes) -> None:
+        """Sync the controller after the consumer adjusted the schedule
+        out-of-band (e.g. alignment quantization)."""
+        self.chunks = np.unique(np.asarray(chunk_sizes, dtype=np.int64))
+
+    # -- external events -----------------------------------------------------
+    def note_event(self, label: str) -> None:
+        """Mark an external event (chaos injection, deploy, tenant
+        churn) at the current observation clock. Events never change
+        decisions; they let :meth:`forecast_miss_refits` attribute
+        later refits to the shocks that forced them."""
+        self.events.append((self.n_observed, label))
+
+    def forecast_miss_refits(self, window: Optional[int] = None) -> int:
+        """Approved **reactive** refits landing within ``window``
+        observations after a noted event — refits the controller had to
+        take *after* a shock it did not pre-position for (a predictive
+        refit before the shock would not count). The torture bench
+        reports the worst case of this across scenarios: it is the
+        forecaster's miss rate under adversarial timing. ``window``
+        defaults to two check cadences."""
+        w = (2 * self.config.check_every if window is None
+             else int(window))
+        n = 0
+        for d in self.decisions:
+            if d.approved and not d.predictive:
+                if any(at <= d.at_observation <= at + w
+                       for at, _ in self.events):
+                    n += 1
+        return n
+
+    # -- observe -------------------------------------------------------------
+    @hot_path
+    def observe(self, size: int) -> None:
+        """Feed one observed item size into the live sketch. O(1)."""
+        self.sketch.observe(size)
+        self._since_check += 1
+
+    @hot_path
+    def observe_many(self, sizes, weights=None) -> None:
+        """Feed a batch of sizes (one flat array) into the live sketch.
+
+        On the device path ``sizes`` may be a device tensor straight out
+        of a serve step — it is bucketed and folded into the resident
+        sketch in one kernel launch, with no host round-trip.
+        """
+        if self._device:
+            before = self.sketch.n_observed
+            self.sketch.observe_many(sizes, weights)
+            self._since_check += self.sketch.n_observed - before
+        else:
+            sizes = np.asarray(sizes).ravel()
+            self.sketch.observe_many(sizes, weights)
+            self._since_check += len(sizes)
+
+    # -- detect + decide -----------------------------------------------------
+    def _reference_now(self):
+        """The live sketch in reference form: a dense device weight
+        tensor on the device path, a host (support, weights) pair
+        otherwise."""
+        if self._device:
+            return self.sketch.weights_device
+        return self.sketch.snapshot_weights()
+
+    def drift(self) -> float:
+        """Distance of the live sketch from the fitting-time reference."""
+        if self.reference is None:
+            return 0.0
+        if self._device:
+            self.sketch.n_scalar_syncs += 1
+            with deliberate_sync("controller.drift-gate"):
+                return float(histogram_distance_device(
+                    self.reference, self.sketch.weights_device,
+                    metric=self.config.drift_metric))
+        return histogram_distance(self.reference,
+                                  self.sketch.snapshot_weights(),
+                                  metric=self.config.drift_metric)
+
+    @property
+    def check_due(self) -> bool:
+        """True when the next :meth:`maybe_refit`/:meth:`begin_check`
+        will actually run a drift check (the cadence is due)."""
+        return self._since_check >= self.config.check_every
+
+    @hot_path(counters=("n_checks",))
+    def maybe_refit(self,
+                    cost_bytes_fn: Optional[Callable[[np.ndarray], float]]
+                    = None) -> Optional[RefitDecision]:
+        """Run one drift check if the cadence is due.
+
+        Returns ``None`` between checks; otherwise a :class:`RefitDecision`
+        (``approved`` tells the caller whether to apply ``chunks``).
+        """
+        out = self.begin_check(cost_bytes_fn)
+        if not isinstance(out, ScoreRequest):
+            return out
+        scores = _score_frontier(out.rows, out.support, out.freqs,
+                                 page_size=out.page_size,
+                                 torch_device=self.config.torch_device)
+        return self.finish_check(out, scores)
+
+    @hot_path(counters=("n_checks",))
+    def begin_check(self,
+                    cost_bytes_fn: Optional[Callable[[np.ndarray], float]]
+                    = None):
+        """First half of a drift check: run every gate up to candidate
+        scoring. Returns ``None`` (not due / nothing observed), a
+        final :class:`RefitDecision` (a gate declined), or a
+        :class:`ScoreRequest` the caller must score and pass to
+        :meth:`finish_check`; :meth:`maybe_refit` scores it inline.
+        """
+        if self._since_check < self.config.check_every:
+            return None
+        self._since_check = 0
+        self.n_checks += 1
+        if self._device:
+            # Fused device path: the whole cadence window of buffered
+            # observe batches folds into the resident sketch in ONE
+            # dispatch here, which also emits the drift distance vs the
+            # resident reference — so the window costs one launch and
+            # the gate costs one scalar readback. The sketch is
+            # materialized solely when the drift+cooldown gates have
+            # already passed.
+            if self.sketch.n_observed == 0:
+                return None
+            drift_dev = None
+            if self.reference is not None:
+                drift_dev = self.sketch.flush_window(
+                    reference=self.reference,
+                    metric=self.config.drift_metric)
+            else:
+                self.sketch.flush_window()
+            if self._forecast_on:
+                self._record_window_device()
+            if self.reference is None:
+                self.reference = self.sketch.weights_device
+                return None
+            if drift_dev is None:
+                drift = self.drift()    # nothing was buffered this window
+            else:
+                self.sketch.n_scalar_syncs += 1
+                with deliberate_sync("controller.window-drift-gate"):
+                    drift = float(drift_dev)
+        else:
+            live = self.sketch.snapshot_weights()
+            if live[0].size == 0:
+                return None
+            if self._forecast_on:
+                self.forecaster.record_window(
+                    self._stream,
+                    demand_bytes=float(np.dot(
+                        live[0].astype(np.float64), live[1])),
+                    support=live[0], weights=live[1])
+            if self.reference is None:
+                # First check: adopt the live sketch as the reference the
+                # initial schedule is presumed fit to.
+                self.reference = live
+                return None
+            drift = histogram_distance(self.reference, live,
+                                       metric=self.config.drift_metric)
+        self.last_drift = drift
+        if drift < self.config.drift_threshold:
+            if self._forecast_on:
+                # The live mixture is covered — exactly when a coming
+                # peak is invisible to the reactive gate. Ask the
+                # forecast whether the mixture at +horizon has drifted.
+                predicted = self._maybe_predictive(drift, cost_bytes_fn)
+                if predicted is not None:
+                    return predicted
+            return self._decide(False, "drift-below-threshold", drift)
+        if (self.n_observed - self._last_refit_at
+                < self.config.min_items_between_refits):
+            return self._decide(False, "cooldown", drift)
+        return self._frontier_request(drift, cost_bytes_fn)
+
+    # -- predictive path (ControllerConfig.forecast) -------------------------
+    def _record_window_device(self) -> None:
+        """One forecast window from the device sketch: the dense weight
+        tensor by reference (handing it out marks it escaped, so later
+        launches never update it in place: a stable, zero-sync snapshot)
+        plus the one demand scalar the periodicity detector needs (a
+        scalar readback, counted like the drift gate's)."""
+        w = self.sketch.weights_device
+        self.sketch.n_scalar_syncs += 1
+        with deliberate_sync("controller.forecast-demand"):
+            demand = float(
+                (self.sketch.support_device.to(torch.float32) * w).sum())
+        self.forecaster.record_window(self._stream, demand_bytes=demand,
+                                      device_weights=w)
+
+    def _maybe_predictive(self, drift: float, cost_bytes_fn):
+        """Fire the refit pipeline on the FORECAST mixture — returning
+        a decision or a :class:`ScoreRequest` — or return ``None`` to
+        fall through to the reactive hold. Gates, in order:
+        a period must be detected with ``forecast_min_confidence``
+        autocorrelation, the forecast mixture must exceed the same
+        drift threshold, and the shared refit cooldown must be clear."""
+        cfg = self.config
+        fc = self.forecaster.predict(self._stream,
+                                     horizon=cfg.forecast_horizon)
+        if fc is None or fc.confidence < cfg.forecast_min_confidence:
+            return None
+        if self._device:
+            if fc.device_weights is None:
+                return None
+            self.sketch.n_scalar_syncs += 1
+            with deliberate_sync("controller.forecast-drift-gate"):
+                fdrift = float(histogram_distance_device(
+                    self.reference, fc.device_weights,
+                    metric=cfg.drift_metric))
+        else:
+            if fc.support is None or fc.support.size == 0:
+                return None
+            fdrift = histogram_distance(self.reference,
+                                        (fc.support, fc.weights),
+                                        metric=cfg.drift_metric)
+        if fdrift < cfg.drift_threshold:
+            return None
+        if (self.n_observed - self._last_refit_at
+                < cfg.min_items_between_refits):
+            return self._decide(False, "forecast-cooldown", drift,
+                                predictive=True, forecast_drift=fdrift)
+        return self._frontier_request(drift, cost_bytes_fn, forecast=fc,
+                                      forecast_drift=fdrift)
+
+    def _forecast_mixture(self, fc):
+        """``(support, freqs, new_reference)`` of the live/forecast
+        blend the predictive pipeline scores against. The reference
+        form matches the path (host pair / dense device vector)."""
+        cfg = self.config
+        if self._device:
+            live = self.sketch.weights_device
+            scale = live.sum() / torch.clamp(fc.device_weights.sum(),
+                                             min=1e-30)
+            blend = ((1.0 - cfg.forecast_blend) * live
+                     + cfg.forecast_blend * scale * fc.device_weights)
+            self.sketch.n_host_syncs += 1      # materialized below
+            with deliberate_sync("controller.forecast-mixture"):
+                w = blend.cpu().numpy().astype(np.float64)
+            freqs = np.rint(w).astype(np.int64)
+            keep = freqs > 0
+            support = ((np.nonzero(keep)[0].astype(np.int64) + 1)
+                       * self.sketch.bucket_width)
+            return support, freqs[keep], blend
+        from repro_torch.core.forecast import blend_histograms
+        live = self.sketch.snapshot_weights()
+        bs, bw = blend_histograms(live, (fc.support, fc.weights),
+                                  cfg.forecast_blend)
+        freqs = np.rint(bw).astype(np.int64)
+        keep = freqs > 0
+        return bs[keep], freqs[keep], (bs, bw)
+
+    def _frontier_request(self, drift: float, cost_bytes_fn, *,
+                          forecast=None, forecast_drift: float = 0.0):
+        """Build the candidate frontier once every gate up to scoring
+        has passed: returns a :class:`ScoreRequest`, or a final
+        :class:`RefitDecision` when there is nothing to score."""
+        cfg = self.config
+        predictive = forecast is not None
+        if predictive:
+            support, freqs, new_reference = self._forecast_mixture(forecast)
+            if support.size == 0:
+                return self._decide(False, "empty-forecast", drift,
+                                    predictive=True,
+                                    forecast_drift=forecast_drift)
+        else:
+            support, freqs = self.sketch.snapshot()
+            new_reference = None
+            if support.size == 0:
+                return self._decide(False, "empty-sketch", drift)
+        k = cfg.k or len(self.chunks)
+        fitted = self.policy.fit(support, freqs, k, method=cfg.method,
+                                 baseline=self.chunks)
+        candidates = [self.chunks,
+                      _quantize_up(fitted.chunk_sizes, cfg.align)]
+        from repro_torch.core.slab_policy import covering_default_classes
+        defaults = _quantize_up(
+            covering_default_classes(support, k=k, page_size=cfg.page_size),
+            cfg.align)
+        if defaults.size:
+            candidates.append(defaults)
+        return ScoreRequest(rows=candidates, support=support, freqs=freqs,
+                            page_size=cfg.page_size, drift=drift,
+                            cost_bytes_fn=cost_bytes_fn,
+                            predictive=predictive,
+                            forecast_drift=forecast_drift,
+                            new_reference=new_reference)
+
+    @hot_path(counters=("n_refits",))
+    def finish_check(self, req: ScoreRequest,
+                     scores: np.ndarray) -> RefitDecision:
+        """Second half of a drift check: turn the waste ``scores`` of
+        ``req.rows`` into the final decision."""
+        cfg = self.config
+        drift = req.drift
+        forecast_drift = req.forecast_drift
+        predictive = req.predictive
+        new_reference = req.new_reference
+        cost_bytes_fn = req.cost_bytes_fn
+        candidates = req.rows
+        scores = np.asarray(scores, dtype=np.float64)
+        best = int(np.argmin(scores[1:])) + 1   # best non-current candidate
+        winner = candidates[best]
+        # The frontier scores ARE the waste values (row 0 is the current
+        # schedule; padding is waste-neutral) — float32 round-off is a
+        # few bytes on ~1e8 totals, far inside the 2% hysteresis band.
+        w_cur = int(round(scores[0]))
+        w_new = int(round(scores[best]))
+        rel = (w_cur - w_new) / max(w_cur, 1)
+        if rel < cfg.min_rel_improvement:
+            if predictive:
+                # hysteresis part 2 of the predictive path: the current
+                # schedule already serves the blend — the live reference
+                # is NOT re-anchored (a declined forecast must never
+                # blind the reactive gate to real drift later).
+                return self._decide(False,
+                                    "forecast-improvement-below-hysteresis",
+                                    drift, chunks=winner, w_cur=w_cur,
+                                    w_new=w_new, predictive=True,
+                                    forecast_drift=forecast_drift)
+            # The schedule is still (near-)optimal for current traffic:
+            # re-anchor the reference so steady-state traffic that merely
+            # *settled* far from the old fitting histogram stops
+            # triggering a full candidate evaluation every check.
+            self.reference = self._reference_now()
+            return self._decide(False, "improvement-below-hysteresis", drift,
+                                chunks=winner, w_cur=w_cur, w_new=w_new)
+        # Savings accrue over future traffic (amortization_windows sketch
+        # masses); migration cost is paid once, now.
+        savings = float(w_cur - w_new) * cfg.amortization_windows
+        cost = cfg.cost_weight * float(cost_bytes_fn(winner)
+                                       if cost_bytes_fn else 0.0)
+        if savings <= cost:
+            return self._decide(False,
+                                ("forecast-cost-exceeds-savings"
+                                 if predictive else "cost-exceeds-savings"),
+                                drift, chunks=winner, w_cur=w_cur,
+                                w_new=w_new, savings=savings, cost=cost,
+                                predictive=predictive,
+                                forecast_drift=forecast_drift)
+        self.chunks = winner
+        if predictive:
+            # Anchor to the BLEND: neither the live traffic that is
+            # still here nor the forecast traffic that arrives on
+            # schedule reads as full drift afterwards, so a correct
+            # forecast cannot bounce the schedule back (hysteresis
+            # part 3); the shared cooldown covers the wrong-forecast
+            # case until the reactive gate sees the truth.
+            self.reference = new_reference
+            self.n_predictive_refits += 1
+        else:
+            self.reference = self._reference_now()
+        self._last_refit_at = self.n_observed
+        self.n_refits += 1
+        return self._decide(True,
+                            "refit-predictive" if predictive else "refit",
+                            drift, chunks=winner, w_cur=w_cur, w_new=w_new,
+                            savings=savings, cost=cost,
+                            predictive=predictive,
+                            forecast_drift=forecast_drift)
+
+    def _decide(self, approved: bool, reason: str, drift: float, *,
+                chunks: Optional[np.ndarray] = None, w_cur: int = 0,
+                w_new: int = 0, savings: float = 0.0,
+                cost: float = 0.0, predictive: bool = False,
+                forecast_drift: float = 0.0) -> RefitDecision:
+        d = RefitDecision(approved=approved, reason=reason, drift=drift,
+                          chunks=chunks, current_waste=w_cur,
+                          candidate_waste=w_new, predicted_savings=savings,
+                          predicted_cost=cost,
+                          at_observation=self.n_observed,
+                          predictive=predictive,
+                          forecast_drift=forecast_drift)
+        self.decisions.append(d)
+        return d
+
+    # -- unconditional refit (manual / legacy cadence path) ------------------
+    def refit_now(self, k: Optional[int] = None, *,
+                  method: Optional[str] = None,
+                  policy=None) -> np.ndarray:
+        """Fit on the live sketch unconditionally and adopt the result.
+
+        This is the legacy ``refit_every`` path and the manual-maintenance
+        path; the drift/cost gates are bypassed by design.
+        """
+        support, freqs = self.sketch.snapshot()
+        if support.size == 0:
+            return self.chunks
+        cfg = self.config
+        pol = policy or self.policy
+        sched = pol.fit(support, freqs, k or cfg.k or len(self.chunks),
+                        method=method or cfg.method, baseline=self.chunks)
+        self.chunks = _quantize_up(sched.chunk_sizes, cfg.align)
+        self.reference = self._reference_now()
+        self._last_refit_at = self.n_observed
+        self.n_refits += 1
+        return self.chunks
