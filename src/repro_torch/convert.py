@@ -22,6 +22,15 @@ float32 vector on the device path, or a ``(support, weights)`` pair on
 the host path), ``since_check``, ``last_refit_at``, ``n_checks``,
 ``n_refits`` and ``sketch`` (sketch or host sketch arrays, matching
 ``config["device"]``).
+
+Fleet sketch matrix (:func:`load_fleet_sketch`): the reference
+``FleetState.sketch`` as a float32 ``[capacity, num_buckets]`` array, into
+a port ``FleetState`` whose rows were allocated the same way.
+
+Harness pools (:func:`load_harness_pools`): the reference
+``OfflineHarness``'s ``k`` and ``v`` pools as float32
+``(pool_rows, hkv, d)`` arrays, into a port harness built on the same
+pool and shapes.
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.controller import ControllerConfig, SlabController
+from repro_torch.core.fleet import FleetState
 from repro_torch.core.observe import DecayedSizeHistogram, DeviceSizeSketch
 
 
@@ -100,3 +110,32 @@ def load_controller_state(arrays: Mapping, *,
     ctl.n_checks = int(arrays["n_checks"])
     ctl.n_refits = int(arrays["n_refits"])
     return ctl
+
+
+def load_fleet_sketch(fleet: FleetState, sketch, *,
+                      torch_device="cuda") -> FleetState:
+    """Copy the reference's stacked sketch matrix into ``fleet``'s
+    (allocated on ``torch_device`` when the fleet has none yet). Views
+    already handed out resolve their rows anew, so they see the copy.
+    Returns ``fleet``."""
+    sketch = np.asarray(sketch, dtype=np.float32)
+    if sketch.ndim != 2 or sketch.shape[0] != fleet.capacity:
+        raise ValueError(f"sketch shape {sketch.shape} does not match the "
+                         f"fleet's capacity {fleet.capacity}")
+    fleet.ensure_sketch(sketch.shape[1], torch_device)
+    fleet.sketch.copy_(torch.from_numpy(sketch.copy()))
+    return fleet
+
+
+def load_harness_pools(harness, k, v):
+    """Copy the reference harness's ``k`` and ``v`` pools into the port
+    ``harness`` (same pool rows, heads and head dim). Returns
+    ``harness``."""
+    for name, dst, src in (("k", harness._k, k), ("v", harness._v, v)):
+        arr = np.asarray(src, dtype=np.float32)
+        if arr.shape != tuple(dst.shape):
+            raise ValueError(f"{name} pool shape {arr.shape} does not "
+                             f"match the harness's {tuple(dst.shape)}")
+        dst.copy_(torch.from_numpy(arr.copy()))
+    return harness
+

@@ -10,6 +10,10 @@ Public surface:
     observe      — streaming decayed size sketch + drift distances
     forecast     — DemandForecaster / Reactive, the predictive seam
     controller   — SlabController, the online observe→detect→refit loop
+    arbiter      — ResourcePool/PagePool + TenantArbiter, cross-tenant
+                   resource arbitration over per-tenant controllers
+    fleet        — FleetState, the per-tenant arbiter state stacked
+                   into [n_tenants, ...] arrays (TenantArbiter(fleet=True))
 """
 from repro_torch.core.distribution import (PAGE_SIZE, PAPER_N_ITEMS,
                                            PAPER_WORKLOADS, PaperWorkload,
@@ -40,6 +44,9 @@ from repro_torch.core.forecast import (DemandForecaster, Forecast, Reactive,
                                        acf_period_batch, blend_histograms)
 from repro_torch.core.controller import (ControllerConfig, RefitDecision,
                                          SlabController)
+from repro_torch.core.arbiter import (PagePool, ResourcePool, TenantArbiter,
+                                      TenantPages, TransferDecision)
+from repro_torch.core.fleet import FleetSketchView, FleetState
 
 __all__ = [
     "PAGE_SIZE", "PAPER_N_ITEMS", "PAPER_WORKLOADS", "PaperWorkload",
@@ -57,4 +64,6 @@ __all__ = [
     "DemandForecaster", "Forecast", "Reactive", "acf_period_batch",
     "blend_histograms",
     "ControllerConfig", "RefitDecision", "SlabController",
+    "PagePool", "ResourcePool", "TenantArbiter", "TenantPages",
+    "TransferDecision", "FleetSketchView", "FleetState",
 ]

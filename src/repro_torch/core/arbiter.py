@@ -1,0 +1,1065 @@
+"""Cross-tenant resource arbitration — the Memshare-style layer above
+the per-tenant controllers.
+
+The paper learns one slab schedule from one traffic pattern; a
+production fleet serves N applications with divergent size distributions
+out of ONE physical resource pool. The controller is the single-tenant
+loop (observe → drift → refit → reconfigure); this module adds the
+arbitration layer above it: each tenant keeps its own
+:class:`~repro_torch.core.controller.SlabController` adapting its own
+schedule, while a global :class:`TenantArbiter` redistributes resource
+*units* between tenants as their demand peaks move out of phase.
+
+Three pieces:
+
+* :class:`ResourcePool` — the shared physical pool, parameterized by
+  resource *kind*: memcached arbitrates 64 KiB **pages**
+  (:class:`PagePool`, ``kind="pages"``), serving arbitrates **KV token
+  quota** units (``kind="kv_tokens"``, see
+  ``repro_torch.serving.kv_slab_pool.token_quota_arbiter``). Every unit is
+  tenant-tagged; per-tenant ``quota`` (None = first-come-first-served)
+  and ``floor`` (units an arbiter may never drain below) bound what
+  arbitration can do. The conservation invariant —
+  ``free + sum(owned) == total`` — holds after every operation and is
+  checked by :attr:`ResourcePool.conserved`.
+* :class:`TenantArbiter` — owns the per-tenant controllers and the
+  transfer loop. Every ``arbitrate_every`` operations it scores the
+  best donor → recipient unit transfer with the controller's own cost
+  model (see below) and executes approved transfers as a quota move
+  plus a ``release_page`` on the donor (memcached ``slabs reassign``
+  eviction semantics, across tenants instead of across classes).
+* :class:`TransferDecision` — one scored transfer verdict, approved or
+  not, mirroring :class:`~repro_torch.core.controller.RefitDecision`.
+
+Transfer cost model (the controller's model, applied across tenants):
+a unit granted to the recipient retains up to one unit of payload the
+recipient is currently evicting, window after window —
+``benefit = min(pressure_bytes, unit_size) * amortization_windows`` —
+while the donor pays ONCE the payload bytes resident on its cheapest
+reclaimable unit, weighted by ``cost_weight`` (the same migration-byte
+: waste-byte exchange rate ``ControllerConfig`` uses). A transfer is
+approved only when ``benefit > cost``, the donor stays at or above its
+floor, and total units are conserved.
+
+Forecast-aware donor selection (``forecast=``): with an active
+:class:`~repro_torch.core.forecast.DemandForecaster`, each arbitration round
+records every tenant's window demand into the forecaster, and a donor
+whose forecast says its demand is about to GROW is surcharged the
+predicted growth bytes — pages are not taken from a tenant heading
+into its peak, which is exactly the reclaim-then-bounce-back loop
+Memshare's reactive arbitration suffers (counted in ``n_bounced``:
+approved transfers whose recipient donated within ``bounce_window``
+ops). ``forecast=None`` or :class:`~repro_torch.core.forecast.Reactive`
+reproduces the reactive decisions bit-for-bit.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.analysis.guards import deliberate_sync
+from repro_torch.analysis.registry import hot_path
+from repro_torch.core.controller import (ControllerConfig, ScoreRequest,
+                                   SlabController, _score_frontier,
+                                   score_requests)
+from repro_torch.core.distribution import PAGE_SIZE
+from repro_torch.kernels import ops
+
+
+# ---------------------------------------------------------------------------
+# ResourcePool (PagePool is the kind="pages" instantiation)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TenantPages:
+    """Per-tenant unit-ownership record inside a :class:`ResourcePool`."""
+
+    owned: int = 0               # units currently held by this tenant
+    quota: Optional[int] = None  # max owned (None: unlimited / FCFS)
+    floor: int = 0               # arbiter may never drop quota below this
+    n_denied: int = 0            # acquire() refusals (pressure signal)
+
+
+class ResourcePool:
+    """A shared physical pool of same-sized units with tenant-tagged
+    ownership, parameterized by resource kind.
+
+    Units are handed out one at a time via :meth:`acquire` and returned
+    via :meth:`release`; the pool never forgets who holds what, so the
+    conservation invariant ``free_units + sum(owned) == total_units``
+    is maintained by construction and exposed as :attr:`conserved`.
+
+    ``quota`` caps what a tenant may hold (``None`` disables the cap —
+    the pooled, first-come-first-served baseline); ``floor`` is the
+    starvation guard honoured by :meth:`move_quota`. ``unit_size`` is
+    the physical size of one unit in the kind's own currency (bytes for
+    pages, tokens for KV quota) — every pressure/benefit/cost number
+    the arbiter computes is in that currency.
+
+    The page-flavoured aliases (``total_pages`` / ``free_pages`` /
+    ``pages_in_use`` / ``page_size``) are kept on the base class so the
+    memcached layer and its tests read naturally; they are the same
+    counters.
+    """
+
+    def __init__(self, total_units: int, *, unit_size: int = PAGE_SIZE,
+                 kind: str = "units"):
+        if total_units <= 0:
+            raise ValueError(f"total_units must be positive: {total_units}")
+        self.total_units = int(total_units)
+        self.unit_size = int(unit_size)
+        self.kind = kind
+        self.free_units = int(total_units)
+        self._tenants: Dict[str, TenantPages] = {}
+
+    # -- registration --------------------------------------------------------
+    def register(self, tenant: str, *, quota: Optional[int] = None,
+                 floor: int = 0) -> TenantPages:
+        """Add ``tenant`` (idempotent; later calls may tighten quota/floor)."""
+        rec = self._tenants.get(tenant)
+        if rec is None:
+            rec = TenantPages(quota=quota, floor=floor)
+            self._tenants[tenant] = rec
+        else:
+            if quota is not None:
+                rec.quota = quota
+            if floor:
+                rec.floor = floor
+        return rec
+
+    def unregister(self, tenant: str, *, force: bool = False) -> None:
+        """Remove ``tenant`` from the pool. The tenant must own nothing
+        (drain with ``release``/``release_page`` first) unless
+        ``force=True``, which returns any still-owned units to the free
+        pool — conservation holds either way."""
+        rec = self._tenants[tenant]
+        if rec.owned:
+            if not force:
+                raise ValueError(
+                    f"tenant {tenant!r} still owns {rec.owned} "
+                    f"{self.kind}; drain first or pass force=True")
+            self.free_units += rec.owned
+            rec.owned = 0
+        del self._tenants[tenant]
+
+    def equal_partition(self, *, floor: Optional[int] = None) -> None:
+        """Set every registered tenant's quota to an equal share of the
+        pool (remainder units go to the earliest-registered tenants)."""
+        names = list(self._tenants)
+        if not names:
+            raise ValueError("no tenants registered")
+        share, rem = divmod(self.total_units, len(names))
+        for i, name in enumerate(names):
+            rec = self._tenants[name]
+            rec.quota = share + (1 if i < rem else 0)
+            if floor is not None:
+                rec.floor = floor
+
+    # -- unit movement -------------------------------------------------------
+    def acquire(self, tenant: str) -> bool:
+        """Hand one free unit to ``tenant``; False when the pool is empty
+        or the tenant is at quota (counted in ``n_denied``)."""
+        rec = self._tenants[tenant]
+        if self.free_units <= 0 or (rec.quota is not None
+                                    and rec.owned >= rec.quota):
+            rec.n_denied += 1
+            return False
+        self.free_units -= 1
+        rec.owned += 1
+        return True
+
+    def release(self, tenant: str) -> None:
+        """``tenant`` returns one owned unit to the free pool."""
+        rec = self._tenants[tenant]
+        if rec.owned <= 0:
+            raise ValueError(f"tenant {tenant!r} owns no {self.kind}")
+        rec.owned -= 1
+        self.free_units += 1
+
+    def set_owned(self, tenant: str, owned: int) -> None:
+        """Re-sync one tenant's ownership from an external usage source
+        (the KV token-quota adapter measures real token usage each
+        round rather than brokering every alloc through the pool).
+        Conservation is preserved: the free counter absorbs the delta.
+        Growth is CLAMPED to the units currently free — per-tenant
+        syncs arrive in arbitrary order, so a grower may be observed
+        before the shrinker that funds it; the arbiter's sync pass
+        runs twice, and the second pass completes any clamped growth
+        (raising here instead would crash arbitration on exactly the
+        out-of-phase handoff it exists for)."""
+        rec = self._tenants[tenant]
+        owned = int(owned)
+        if owned < 0:
+            raise ValueError(f"owned must be non-negative, got {owned}")
+        delta = min(owned - rec.owned, self.free_units)
+        rec.owned += delta
+        self.free_units -= delta
+
+    def move_quota(self, donor: str, recipient: str, units: int = 1) -> None:
+        """Shift ``units`` of quota donor → recipient (the arbiter's
+        bookkeeping half of a transfer). The donor must be
+        quota-managed and stays at or above its floor — the starvation
+        guard; an unmanaged recipient (``quota=None``) simply keeps its
+        unlimited grab rights and only the donor shrinks."""
+        self.shrink_quota(donor, units)
+        r = self._tenants[recipient]
+        if r.quota is not None:
+            r.quota += units
+
+    def shrink_quota(self, tenant: str, units: int = 1) -> None:
+        """Lower a tenant's quota, refusing to cross its floor."""
+        rec = self._tenants[tenant]
+        if rec.quota is None:
+            raise ValueError(
+                f"tenant {tenant!r} is not quota-managed "
+                "(register with quota= or call equal_partition)")
+        if rec.quota - units < rec.floor:
+            raise ValueError(
+                f"transfer would drain {tenant!r} below its floor "
+                f"({rec.quota}-{units} < {rec.floor})")
+        rec.quota -= units
+
+    # -- views ---------------------------------------------------------------
+    def owned(self, tenant: str) -> int:
+        return self._tenants[tenant].owned
+
+    def quota(self, tenant: str) -> Optional[int]:
+        return self._tenants[tenant].quota
+
+    def tenants(self) -> Dict[str, TenantPages]:
+        return dict(self._tenants)
+
+    @property
+    def units_in_use(self) -> int:
+        return sum(rec.owned for rec in self._tenants.values())
+
+    @property
+    def conserved(self) -> bool:
+        """The invariant every transfer must preserve."""
+        return self.free_units + self.units_in_use == self.total_units
+
+    # -- page-flavoured aliases (memcached reads naturally) ------------------
+    @property
+    def total_pages(self) -> int:
+        return self.total_units
+
+    @property
+    def free_pages(self) -> int:
+        return self.free_units
+
+    @property
+    def pages_in_use(self) -> int:
+        return self.units_in_use
+
+    @property
+    def page_size(self) -> int:
+        return self.unit_size
+
+
+class PagePool(ResourcePool):
+    """The ``kind="pages"`` pool memcached tenants share (the original
+    arbitration quantum: one slab page of ``page_size`` bytes)."""
+
+    def __init__(self, total_pages: int, *, page_size: int = PAGE_SIZE):
+        super().__init__(total_pages, unit_size=page_size, kind="pages")
+
+
+# ---------------------------------------------------------------------------
+# TenantArbiter
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TransferDecision:
+    """One scored donor → recipient unit-transfer verdict."""
+
+    approved: bool
+    reason: str                  # "transfer" | why it was declined
+    donor: Optional[str]
+    recipient: Optional[str]
+    benefit: float               # amortized payload bytes retained
+    cost: float                  # weighted eviction bytes charged to donor
+    evicted_items: int           # donor items actually evicted (approved)
+    evicted_bytes: int
+    at_op: int                   # arbiter op clock when decided
+    forecast_penalty: float = 0.0  # demand-growth surcharge in the cost
+
+
+@dataclasses.dataclass
+class _Tenant:
+    name: str
+    allocator: "object"            # SlabAllocator-shaped (duck-typed)
+    controller: SlabController
+    # window baselines for the pressure signal
+    evicted_bytes0: int = 0
+    denials0: int = 0
+    pressure: float = 0.0
+    # demand-forecast stream state
+    window_demand_bytes: float = 0.0   # set payload since last round
+    last_donated_at: int = -1          # op clock of last approved donation
+    # fleet mode: stacked-state row + duck-hooks cached at registration
+    row: int = -1
+    sync_owned_fn: Optional[object] = None
+    demand_fn: Optional[object] = None
+    apply_quota_fn: Optional[object] = None
+
+
+class TenantArbiter:
+    """Global resource arbiter over per-tenant slab controllers.
+
+    Each registered tenant brings an allocator attached to the shared
+    :class:`ResourcePool` and gets its own
+    :class:`~repro_torch.core.controller.SlabController` (intra-tenant
+    schedule adaptation continues exactly as in the single-tenant
+    loop). The arbiter adds the inter-tenant axis: route ``set`` /
+    ``delete`` traffic through :meth:`set` / :meth:`delete` (or drive
+    the cadence externally with :meth:`tick` — the serving layer's
+    mode) and every ``arbitrate_every`` ops it runs :meth:`arbitrate`,
+    which
+
+    1. measures per-tenant *pressure* — payload bytes lost to capacity
+       evictions plus unit-denial mass since the last round,
+    2. picks the highest-pressure tenant as recipient and the tenant
+       with the cheapest reclaimable unit as donor — where "cheapest"
+       is the eviction-policy-priced reclaim cost PLUS, under an
+       active forecast, the tenant's predicted demand growth (don't
+       take units a tenant is about to need),
+    3. scores the transfer with the controller's cost model
+       (``benefit = min(pressure, unit_size) * amortization_windows``
+       vs ``cost = cost_weight * donor_release_cost + growth
+       surcharge``), and
+    4. executes approved transfers: quota moves donor → recipient and
+       the donor's cheapest unit is reclaimed
+       (``release_page``, memcached ``slabs reassign`` eviction
+       semantics) back into the shared free pool for the recipient to
+       grab on demand.
+
+    Guarantees (tested in ``tests/test_multitenant.py`` /
+    ``tests/test_forecast.py``):
+    * units are conserved across every transfer (``pool.conserved``),
+    * no transfer is approved when predicted benefit <= predicted cost,
+    * no donor is ever drained below its registered ``floor_pages``,
+    * ``forecast=None`` / ``Reactive`` decisions match the
+      pre-forecast arbiter exactly.
+    """
+
+    def __init__(self, pool: ResourcePool, *,
+                 controller_config: Optional[ControllerConfig] = None,
+                 arbitrate_every: int = 5000,
+                 amortization_windows: float = 4.0,
+                 cost_weight: float = 0.25,
+                 max_transfers_per_round: int = 4,
+                 tail_default: bool = True,
+                 forecast=None,
+                 forecast_horizon: int = 1,
+                 forecast_min_confidence: float = 0.35,
+                 forecast_weight: float = 1.0,
+                 bounce_window: Optional[int] = None,
+                 fleet: bool = False,
+                 fleet_capacity: int = 8):
+        # where batched frontier scoring runs (raises now, not at the
+        # first refit, when it names a missing card)
+        self.torch_device = ops.resolve_device(
+            (controller_config or ControllerConfig()).torch_device)
+        self.pool = pool
+        self.controller_config = controller_config
+        self.arbitrate_every = int(arbitrate_every)
+        self.amortization_windows = float(amortization_windows)
+        self.cost_weight = float(cost_weight)
+        self.max_transfers_per_round = int(max_transfers_per_round)
+        self.tail_default = tail_default
+        self.forecaster = forecast
+        self._forecast_on = bool(getattr(forecast, "active", False))
+        self.forecast_horizon = int(forecast_horizon)
+        self.forecast_min_confidence = float(forecast_min_confidence)
+        self.forecast_weight = float(forecast_weight)
+        self.bounce_window = (2 * self.arbitrate_every
+                              if bounce_window is None else int(bounce_window))
+        self.tenants: Dict[str, _Tenant] = {}
+        self.decisions: List[TransferDecision] = []
+        self.events: List[Tuple[int, str]] = []   # (n_ops, label) marks
+        self.n_transfers = 0
+        self.n_bounced = 0       # recipient had donated within bounce_window
+        # tick-granular admission gate (serving harness seam)
+        self.n_admission_checks = 0
+        self.n_admission_denials = 0
+        self.n_ops = 0
+        self._since_arbitrate = 0
+        # Fleet-batched candidate scoring telemetry: every drain that
+        # finds pending frontiers costs ONE waste_eval launch however
+        # many tenants came due together.
+        self.n_score_launches = 0
+        self.n_frontiers_scored = 0
+        # fleet=True: per-tenant state lives in stacked FleetState rows
+        # (pressure, quotas, forecast rings, cadence mirrors, device
+        # sketches) and every arbitration stage runs batched over the
+        # whole fleet; the per-tenant loop above stays available as the
+        # bit-exact oracle (fleet=False). n_gate_launches counts the
+        # one-launch-per-tick batched drift gate.
+        self.fleet = None
+        self.n_gate_launches = 0
+        self._by_row: Dict[int, _Tenant] = {}
+        self._sorted_cache: Optional[List[_Tenant]] = None
+        if fleet:
+            from repro_torch.core.fleet import FleetState
+            self.fleet = FleetState(
+                capacity=fleet_capacity,
+                forecaster=self.forecaster if self._forecast_on else None)
+
+    # -- registration --------------------------------------------------------
+    def register(self, name: str, allocator, *,
+                 controller: Optional[SlabController] = None,
+                 floor_pages: int = 1,
+                 quota: Optional[int] = None) -> SlabController:
+        """Register one tenant. ``allocator`` must be attached to the
+        arbiter's pool (``SlabAllocator(page_pool=pool, tenant=name)``,
+        or a ``KVTenantQuotaView`` for the token-quota kind); a
+        per-tenant controller is created from ``controller_config``
+        when none is supplied. Returns the tenant's controller.
+
+        Only quota-managed tenants can *donate* units — pass ``quota=``
+        here or call ``pool.equal_partition()`` after registering
+        everyone (unmanaged tenants can still receive)."""
+        if name in self.tenants:
+            raise ValueError(f"tenant {name!r} already registered")
+        if getattr(allocator, "page_pool", None) is not self.pool:
+            raise ValueError(
+                f"allocator for {name!r} is not attached to this pool")
+        if getattr(allocator, "tenant", None) != name:
+            raise ValueError(
+                f"allocator tenant tag {allocator.tenant!r} != {name!r}")
+        self.pool.register(name, quota=quota, floor=floor_pages)
+        row = -1
+        if self.fleet is not None:
+            row = self.fleet.alloc_row(name)
+            self.fleet.adopt_pool_record(self.pool, name)
+        if controller is None:
+            cfg = self.controller_config or ControllerConfig(
+                page_size=self.pool.unit_size)
+            sketch = None
+            if self.fleet is not None and cfg.device:
+                sketch = self.fleet.sketch_view(row, cfg)
+            controller = SlabController(allocator.chunk_sizes, config=cfg,
+                                        sketch=sketch)
+        t = _Tenant(name=name, allocator=allocator, controller=controller,
+                    row=row,
+                    sync_owned_fn=getattr(allocator, "sync_owned", None),
+                    demand_fn=getattr(allocator, "current_demand_bytes",
+                                      None),
+                    apply_quota_fn=getattr(allocator, "apply_quota", None))
+        self.tenants[name] = t
+        self._sorted_cache = None
+        if self.fleet is not None:
+            self._by_row[row] = t
+            self.fleet.check_every[row] = controller.config.check_every
+            self.fleet.since_check[row] = controller._since_check
+        return controller
+
+    def remove(self, name: str, *, release_pages: bool = True):
+        """Unregister one tenant — the leave half of join/leave churn.
+
+        With ``release_pages`` (default) every unit the tenant still
+        owns is drained back to the free pool through its allocator's
+        ``release_page`` (evicting residents, the same reclaim path a
+        transfer uses); allocators without one (KV quota views) fall
+        back to a forced pool unregister, which frees the owned units
+        directly. In fleet mode the tenant's row is zeroed and pushed
+        on the free-list for the next joiner. Returns the tenant's
+        controller (callers may want its decision log)."""
+        t = self.tenants.pop(name)
+        self._sorted_cache = None
+        release = (getattr(t.allocator, "release_page", None)
+                   if release_pages else None)
+        while release is not None and self.pool.owned(name) > 0:
+            release()
+        self.pool.unregister(name, force=self.pool.owned(name) > 0)
+        if self.fleet is not None:
+            del self._by_row[t.row]
+            self.fleet.free_row(name)
+        return t.controller
+
+    def _sorted_tenants(self) -> List[_Tenant]:
+        """Tenants in sorted-name order — the legacy loop's selection
+        order, cached until membership changes (the fleet pricing
+        stages index arrays in exactly this order so argmax/lexsort
+        tie-breaking lands on the same tenant the legacy scan picks)."""
+        if self._sorted_cache is None:
+            self._sorted_cache = [self.tenants[n]
+                                  for n in sorted(self.tenants)]
+        return self._sorted_cache
+
+    # -- traffic -------------------------------------------------------------
+    @hot_path(counters=("n_ops",))
+    def set(self, name: str, key: str, value_size: int) -> bool:
+        """Store one item for ``name``: feeds its allocator + sketch, runs
+        the tenant's own refit pipeline, and the arbitration cadence."""
+        t = self.tenants[name]
+        stored = t.allocator.set(key, value_size)
+        t.controller.observe(int(value_size) + t.allocator.item_overhead)
+        if self.fleet is None:
+            t.window_demand_bytes += float(value_size)
+        else:
+            self.fleet.window_demand[t.row] += float(value_size)
+        self._maybe_refit_tenant(t)
+        if self.fleet is not None:
+            self.fleet.since_check[t.row] = t.controller._since_check
+        self.n_ops += 1
+        self._since_arbitrate += 1
+        if self._since_arbitrate >= self.arbitrate_every:
+            self.arbitrate()
+        return stored
+
+    @hot_path
+    def observe(self, name: str, sizes, weights=None) -> None:
+        """Feed externally-measured sizes into one tenant's sketch
+        WITHOUT ticking the op cadence (pair with :meth:`tick` — the
+        serving layer's mode). This is the observation route fleet mode
+        requires: it keeps the stacked cadence mirror in sync, so the
+        vectorized due-scan in :meth:`tick` sees the tenant come due.
+        (Legacy mode scans every controller per tick, so direct
+        ``controller.observe`` calls also work there.)"""
+        t = self.tenants[name]
+        t.controller.observe_many(sizes, weights)
+        if self.fleet is not None:
+            self.fleet.since_check[t.row] = t.controller._since_check
+
+    @hot_path(counters=("n_ops",))
+    def get(self, name: str, key: str) -> bool:
+        """Look up one item (touch-on-get feeds the tenant's eviction
+        policy — re-referenced items gain rank, so donor pages are
+        carved from the residents the traffic stopped asking for);
+        counts toward the arbitration cadence."""
+        hit = self.tenants[name].allocator.get(key)
+        self.n_ops += 1
+        self._since_arbitrate += 1
+        if self._since_arbitrate >= self.arbitrate_every:
+            self.arbitrate()
+        return hit
+
+    @hot_path(counters=("n_ops",))
+    def delete(self, name: str, key: str) -> bool:
+        """Delete one item; counts toward the arbitration cadence (TTL
+        churn frees the chunks that make cheap donors)."""
+        deleted = self.tenants[name].allocator.delete(key)
+        self.n_ops += 1
+        self._since_arbitrate += 1
+        if self._since_arbitrate >= self.arbitrate_every:
+            self.arbitrate()
+        return deleted
+
+    @hot_path(counters=("n_score_launches", "n_gate_launches",
+                        "n_frontiers_scored"))
+    def tick(self, n: int = 1) -> None:
+        """Advance the arbitration cadence by ``n`` operations that did
+        NOT route through :meth:`set`/:meth:`get`/:meth:`delete` — the
+        serving layer's mode, where traffic flows through
+        ``KVSlabPool.alloc`` and the batcher just reports op counts.
+        Every tenant whose controller came due (externally-fed sketches)
+        gets its drift check here, with all pending candidate frontiers
+        scored in ONE batched ``waste_eval`` launch. Fleet mode finds
+        the due tenants with one vectorized mask over the stacked
+        cadence mirror (kept in sync by :meth:`set`/:meth:`observe`)
+        and batches their device drift gates into one launch."""
+        self.n_ops += int(n)
+        self._since_arbitrate += int(n)
+        if self.fleet is None:
+            self._drain_checks(self.tenants.values())
+        else:
+            self._drain_checks_fleet()
+        if self._since_arbitrate >= self.arbitrate_every:
+            self.arbitrate()
+
+    @hot_path(counters=("n_admission_checks", "n_admission_denials"))
+    def admission(self, name: str, units: int = 1) -> bool:
+        """Tick-granular admission gate — the serving harness asks the
+        arbiter BEFORE allocating for a new request: may tenant ``name``
+        take ``units`` more of the pool's resource right now?
+
+        Admitted when the tenant is unmanaged (``quota=None``) or its
+        re-synced ownership plus the request fits its arbiter-assigned
+        quota; the underlying allocator's own quota check stays the
+        enforcement backstop (``apply_quota`` keeps the two in
+        agreement). A denial is recorded on the tenant's pressure
+        signal (``note_admission_denial`` on allocators that carry one,
+        e.g. :class:`~repro_torch.serving.kv_slab_pool.KVTenantQuotaView`),
+        so the NEXT arbitration round sees the starvation and can move
+        quota toward the stream — deny now, rebalance at cadence, admit
+        later, instead of letting an over-quota stream fail deep in the
+        allocator."""
+        t = self.tenants.get(name)
+        if t is None:
+            raise KeyError(f"tenant {name!r} not registered")
+        self.n_admission_checks += 1
+        if t.sync_owned_fn is not None:
+            t.sync_owned_fn()
+        quota = self.pool.quota(name)
+        if quota is None or self.pool.owned(name) + units <= quota:
+            return True
+        self.n_admission_denials += 1
+        note = getattr(t.allocator, "note_admission_denial", None)
+        if note is not None:
+            note()
+        return False
+
+    def note_event(self, label: str, tenants: Optional[Sequence[str]] = None
+                   ) -> None:
+        """Mark an external event (chaos injection, deploy) on the
+        arbiter clock and on every named tenant's controller (all
+        tenants when ``tenants`` is None) — the torture harness feeds
+        chaos marks through here so per-tenant
+        ``forecast_miss_refits`` and the arbiter-level timeline agree."""
+        self.events.append((self.n_ops, label))
+        names = self.tenants.keys() if tenants is None else tenants
+        for name in names:
+            self.tenants[name].controller.note_event(label)
+
+    def forecast_miss_refits(self, window: Optional[int] = None) -> int:
+        """Sum of every tenant controller's post-event reactive refits
+        (see :meth:`SlabController.forecast_miss_refits`)."""
+        return sum(t.controller.forecast_miss_refits(window)
+                   for t in self.tenants.values())
+
+    def _deploy_schedule(self, chunks: np.ndarray) -> np.ndarray:
+        if not self.tail_default:
+            return np.asarray(chunks, dtype=np.int64)
+        from repro_torch.core.slab_policy import schedule_with_default_tail
+        return schedule_with_default_tail(chunks,
+                                          page_size=self.pool.unit_size)
+
+    def _apply_refit(self, t: _Tenant, decision) -> None:
+        if decision.approved:
+            deployed = self._deploy_schedule(decision.chunks)
+            t.allocator.reconfigure(deployed)
+            t.controller.set_chunks(deployed)
+
+    def _maybe_refit_tenant(self, t: _Tenant) -> None:
+        self._drain_checks([t])
+
+    def _drain_checks(self, tenants, drifts=None) -> None:
+        """Run every due tenant's drift check, batching all surviving
+        candidate frontiers into one fleet ``waste_eval`` launch.
+
+        The gates (drift, cooldown, hysteresis, cost model) run in each
+        tenant's own controller exactly as on the solo path; only the
+        frontier *scoring* is pooled. A single pending frontier goes
+        through the controller's own ``_score_frontier`` launch, so
+        solo-tenant decisions stay bit-identical to ``maybe_refit``;
+        with several pending tenants the fleet kernel scores every
+        frontier row against its own histogram in one launch (padding
+        is score-neutral — see ``score_requests``). ``drifts`` maps
+        ``id(tenant)`` to a drift value precomputed by the fleet's
+        batched gate launch (see :meth:`_batched_gate`)."""
+        pending = []
+        for t in tenants:
+            if not t.controller.check_due:
+                continue
+            out = t.controller.begin_check(
+                cost_bytes_fn=lambda c, _t=t:
+                    _t.allocator.migration_cost_bytes(
+                        self._deploy_schedule(c)),
+                precomputed_drift=(None if drifts is None
+                                   else drifts.get(id(t))))
+            if out is None:
+                continue
+            if isinstance(out, ScoreRequest):
+                pending.append((t, out))
+            else:
+                self._apply_refit(t, out)
+        if not pending:
+            return
+        self.n_score_launches += 1
+        self.n_frontiers_scored += len(pending)
+        if len(pending) == 1:
+            t, req = pending[0]
+            scores = [_score_frontier(
+                req.rows, req.support, req.freqs, page_size=req.page_size,
+                torch_device=t.controller.config.torch_device)]
+        else:
+            # group by page_size (a kernel argument shared by the
+            # launch); in practice one group — one launch per tick
+            by_ps: Dict[int, List] = {}
+            for t, req in pending:
+                by_ps.setdefault(req.page_size, []).append(req)
+            scored = {}
+            for reqs in by_ps.values():
+                for req, s in zip(reqs, score_requests(
+                        reqs, torch_device=self.torch_device)):
+                    scored[id(req)] = s
+            self.n_score_launches += len(by_ps) - 1
+            scores = [scored[id(req)] for _, req in pending]
+        for (t, req), s in zip(pending, scores):
+            self._apply_refit(t, t.controller.finish_check(req, s))
+
+    def _drain_checks_fleet(self) -> None:
+        """Fleet due-scan: one vectorized mask over the stacked cadence
+        mirror picks the due rows; their device drift gates run as one
+        batched launch; the surviving frontiers batch-score as usual."""
+        f = self.fleet
+        due_rows = np.nonzero(f.active
+                              & (f.check_every > 0)
+                              & (f.since_check >= f.check_every))[0]
+        if due_rows.size == 0:
+            return
+        due = [self._by_row[int(r)] for r in due_rows]
+        self._drain_checks(due, self._batched_gate(due))
+        for t in due:
+            f.since_check[t.row] = t.controller._since_check
+
+    def _batched_gate(self, due) -> Optional[Dict[int, float]]:
+        """One ``drift_gate_fleet`` pass + one vector readback for
+        every due device-sketch tenant with an adopted reference.
+
+        Returns ``id(tenant) -> drift`` for the gated tenants (others
+        fall through to their controller's solo gate). A single ready
+        tenant uses the solo fused flush+gate — same one-launch cost,
+        and bit-identical to legacy, matching the score-launch idiom.
+        Groups by (metric, grid) — one launch per group; fleets share
+        a controller_config, so in practice one group, one launch."""
+        ready = [t for t in due
+                 if t.controller._device
+                 and t.controller.reference is not None
+                 and t.controller.sketch.n_observed > 0]
+        if len(ready) < 2:
+            return None
+        groups: Dict[Tuple[str, int], List[_Tenant]] = {}
+        for t in ready:
+            key = (t.controller.config.drift_metric,
+                   int(t.controller.sketch.num_buckets))
+            groups.setdefault(key, []).append(t)
+        from repro_torch.core.fleet import FleetSketchView
+        from repro_torch.kernels.fleet_gate import drift_gate_fleet
+        out: Dict[int, float] = {}
+        for (metric, _), ts in groups.items():
+            for t in ts:
+                t.controller.sketch.flush_window()
+            refs = torch.stack([t.controller.reference for t in ts])
+            if self.fleet is not None and all(
+                    isinstance(t.controller.sketch, FleetSketchView)
+                    for t in ts):
+                # one gather of the stacked rows (already a copy)
+                rows = torch.as_tensor([t.row for t in ts],
+                                       device=self.fleet.sketch.device)
+                live = self.fleet.sketch[rows]
+            else:
+                live = torch.stack([t.controller.sketch.weights_device
+                                    for t in ts])
+            vals_dev = drift_gate_fleet(refs, live, metric=metric)
+            with deliberate_sync("arbiter.fleet-drift-gate"):
+                vals = vals_dev.cpu().numpy()
+            self.n_gate_launches += 1
+            for t, v in zip(ts, vals):
+                out[id(t)] = float(v)
+        return out
+
+    # -- arbitration ---------------------------------------------------------
+    def _refresh_pressure(self) -> None:
+        unit_size = self.pool.unit_size
+        for t in self.tenants.values():
+            ev = t.allocator.evicted_bytes - t.evicted_bytes0
+            dn = t.allocator.n_page_denials - t.denials0
+            # evicted payload measures what was lost, denial mass the
+            # capacity shortfall; both terms always count so a tiny
+            # eviction can never zero out a heavily-denied tenant
+            t.pressure = float(ev) + float(dn) * unit_size
+
+    def _reset_window(self) -> None:
+        for t in self.tenants.values():
+            t.evicted_bytes0 = t.allocator.evicted_bytes
+            t.denials0 = t.allocator.n_page_denials
+            t.window_demand_bytes = 0.0
+
+    def _record_forecast_windows(self) -> None:
+        """One demand window per tenant per arbitration round. The
+        demand summary is the window's stored payload; an allocator may
+        override it (``current_demand_bytes``) — the KV quota view
+        reports live allocated tokens, which IS its demand."""
+        for t in self.tenants.values():
+            fn = getattr(t.allocator, "current_demand_bytes", None)
+            demand = float(fn()) if fn is not None else t.window_demand_bytes
+            self.forecaster.record_window(t.name, demand_bytes=demand)
+
+    def _forecast_penalty(self, t: _Tenant) -> float:
+        """Demand-growth surcharge on a candidate donor, in pool-
+        currency bytes: the units this tenant's forecast says it is
+        about to need are priced at full value, so reclaiming them now
+        just to bounce them back next round never scores well."""
+        if not self._forecast_on:
+            return 0.0
+        growth, conf = self.forecaster.demand_growth(
+            t.name, self.forecast_horizon)
+        if conf < self.forecast_min_confidence or growth <= 0.0:
+            return 0.0
+        return self.forecast_weight * float(growth)
+
+    def _donor_release_cost(self, t: _Tenant) -> Optional[float]:
+        """Predicted cost of the donor's cheapest reclaimable unit, or
+        None when the tenant has nothing it may give (no unit above its
+        floor). The number comes from the tenant allocator's eviction
+        policy (``page_release_cost_bytes`` →
+        ``EvictionPolicy.page_reclaim_cost_bytes``): under cost-aware
+        policies a page full of never-re-referenced residents prices
+        near zero, so reclaimed units come from the least-valuable
+        residents fleet-wide — not merely the fewest-bytes page."""
+        rec = self.pool._tenants[t.name]
+        if rec.quota is None or rec.quota - 1 < rec.floor:
+            return None         # unmanaged or at floor: may not donate
+        if rec.owned < rec.quota:
+            return 0            # unexercised quota: giving it away is free
+        return t.allocator.page_release_cost_bytes()
+
+    @hot_path(counters=("n_transfers", "n_bounced"))
+    def arbitrate(self) -> List[TransferDecision]:
+        """One arbitration round; returns this round's decisions."""
+        if self.fleet is not None:
+            return self._arbitrate_fleet()
+        self._since_arbitrate = 0
+        # Two passes: set_owned clamps growth to the units free at that
+        # moment, so shrinking tenants must release first — the second
+        # pass completes growth the first one clamped, whatever order
+        # the tenants sync in.
+        for _ in range(2):
+            for t in self.tenants.values():
+                sync = getattr(t.allocator, "sync_owned", None)
+                if sync is not None:  # KV quota views measure usage here
+                    sync()
+        self._refresh_pressure()
+        if self._forecast_on:
+            self._record_forecast_windows()
+        round_decisions: List[TransferDecision] = []
+        unit_size = self.pool.unit_size
+        names = sorted(self.tenants)
+        for _ in range(self.max_transfers_per_round):
+            recipient = max(
+                (self.tenants[n] for n in names),
+                key=lambda t: t.pressure)
+            if recipient.pressure <= 0.0:
+                break    # nobody is starved; no decision to record
+            benefit = (min(recipient.pressure, float(unit_size))
+                       * self.amortization_windows)
+            # cheapest donor that may give a unit (floor respected),
+            # ranked by release cost + forecast demand-growth surcharge
+            donor = None
+            donor_cost: Optional[float] = None
+            donor_penalty = 0.0
+            for n in names:
+                t = self.tenants[n]
+                if t is recipient:
+                    continue
+                base = self._donor_release_cost(t)
+                if base is None:
+                    continue
+                pen = self._forecast_penalty(t)
+                c = float(base) + pen
+                if donor_cost is None or c < donor_cost or (
+                        c == donor_cost and t.pressure < donor.pressure):
+                    donor, donor_cost, donor_penalty = t, c, pen
+            if donor is None:
+                # nobody may donate: every other tenant is unmanaged,
+                # at its floor, or holds nothing — the starvation guard
+                round_decisions.append(self._decide(
+                    False, "no-eligible-donor", None, recipient.name,
+                    benefit, 0.0))
+                break
+            # the penalty is a demand-bytes surcharge, not an eviction
+            # prediction — it is charged at full weight on top of the
+            # discounted eviction cost
+            cost = (self.cost_weight * float(donor_cost - donor_penalty)
+                    + donor_penalty)
+            if benefit <= cost:
+                round_decisions.append(self._decide(
+                    False, "cost-exceeds-benefit", donor.name,
+                    recipient.name, benefit, cost,
+                    forecast_penalty=donor_penalty))
+                break
+            # execute: quota follows the unit; the donor's cheapest unit
+            # goes back to the shared free pool for the recipient to
+            # grab on its next demand
+            self.pool.move_quota(donor.name, recipient.name, 1)
+            evicted_items = evicted_bytes = 0
+            if self.pool.owned(donor.name) > self.pool.quota(donor.name):
+                evicted_items, evicted_bytes = donor.allocator.release_page()
+            for moved in (donor, recipient):
+                apply_quota = getattr(moved.allocator, "apply_quota", None)
+                if apply_quota is not None:   # KV views push quota back
+                    apply_quota(self.pool.quota(moved.name))
+            self.n_transfers += 1
+            if (recipient.last_donated_at >= 0
+                    and self.n_ops - recipient.last_donated_at
+                    <= self.bounce_window):
+                # the reactive blind spot made visible: this tenant gave
+                # a unit away moments ago and is already buying it back
+                self.n_bounced += 1
+            donor.last_donated_at = self.n_ops
+            round_decisions.append(self._decide(
+                True, "transfer", donor.name, recipient.name, benefit,
+                cost, evicted_items=evicted_items,
+                evicted_bytes=evicted_bytes,
+                forecast_penalty=donor_penalty))
+            recipient.pressure = max(
+                0.0, recipient.pressure - float(unit_size))
+        self._reset_window()
+        return round_decisions
+
+    def _arbitrate_fleet(self) -> List[TransferDecision]:
+        """One arbitration round over the stacked fleet state.
+
+        Decision-for-decision (and bit-for-bit, on host sketches) the
+        same as the legacy loop in :meth:`arbitrate`, with every
+        O(n_tenants) Python pass replaced by one batched stage:
+
+        * pressure refresh — two ``np.fromiter`` gathers of the
+          allocator counters, then elementwise float64 (the exact ops
+          ``_refresh_pressure`` runs per tenant),
+        * forecast surcharge — one stacked ring push plus one batched
+          ACF pass (:meth:`FleetState.demand_growth`, which shares its
+          implementation with the scalar ``DemandForecaster``), once
+          per round — legacy recomputes it per transfer iteration, but
+          the rings don't change within a round, so once is identical,
+        * donor pricing — ``page_release_cost_bytes`` (a pure query) is
+          gathered once per round for the at-quota eligible tenants and
+          cached; after an executed transfer only the donor's entry is
+          invalidated (the one allocator that mutated). Selection is a
+          stable lexsort on (cost, pressure, sorted-name position) —
+          exactly the legacy scan's strict-< replacement rule.
+
+        Transfers still execute one at a time through the pool (each
+        changes the eligibility landscape for the next), so the
+        decision *sequence* is the legacy sequence.
+        """
+        self._since_arbitrate = 0
+        f = self.fleet
+        for _ in range(2):      # same two clamped-growth sync passes
+            for t in self.tenants.values():
+                if t.sync_owned_fn is not None:
+                    t.sync_owned_fn()
+        ts = self._sorted_tenants()
+        n = len(ts)
+        if n == 0:
+            return []
+        unit = self.pool.unit_size
+        rows = np.asarray([t.row for t in ts], dtype=np.int64)
+        ev = np.fromiter((t.allocator.evicted_bytes for t in ts),
+                         dtype=np.int64, count=n)
+        dn = np.fromiter((t.allocator.n_page_denials for t in ts),
+                         dtype=np.int64, count=n)
+        press = ((ev - f.evicted0[rows]).astype(np.float64)
+                 + (dn - f.denials0[rows]).astype(np.float64) * unit)
+        if self._forecast_on:
+            demand = f.window_demand[rows].copy()
+            for i, t in enumerate(ts):
+                if t.demand_fn is not None:
+                    demand[i] = float(t.demand_fn())
+            f.record_demand(rows, demand)
+            growth, conf = f.demand_growth(rows, self.forecast_horizon)
+            pen = np.where((conf >= self.forecast_min_confidence)
+                           & (growth > 0.0),
+                           self.forecast_weight * growth, 0.0)
+        else:
+            pen = np.zeros(n, dtype=np.float64)
+        release_cost = np.full(n, np.nan)   # per-round pure-query cache
+        has_cost = np.zeros(n, dtype=bool)
+        round_decisions: List[TransferDecision] = []
+        for _ in range(self.max_transfers_per_round):
+            ri = int(np.argmax(press))      # first max == legacy's scan
+            if press[ri] <= 0.0:
+                break    # nobody is starved; no decision to record
+            recipient = ts[ri]
+            benefit = (min(float(press[ri]), float(unit))
+                       * self.amortization_windows)
+            q = f.quota[rows]
+            can = (q >= 0) & (q - 1 >= f.floor[rows])
+            can[ri] = False
+            zero_cost = can & (f.owned[rows] < q)
+            for i in np.nonzero(can & ~zero_cost & ~has_cost)[0]:
+                c0 = ts[i].allocator.page_release_cost_bytes()
+                release_cost[i] = np.nan if c0 is None else float(c0)
+                has_cost[i] = True
+            base = np.where(zero_cost, 0.0, release_cost)
+            c = base + pen
+            elig = can & ~np.isnan(base)
+            if not elig.any():
+                round_decisions.append(self._decide(
+                    False, "no-eligible-donor", None, recipient.name,
+                    benefit, 0.0))
+                break
+            idx = np.nonzero(elig)[0]
+            # stable sort by (cost, pressure), position ascending within
+            # ties — the legacy strict-< scan's winner
+            di = int(idx[np.lexsort((press[idx], c[idx]))[0]])
+            donor = ts[di]
+            donor_cost = float(c[di])
+            donor_penalty = float(pen[di])
+            cost = (self.cost_weight * float(donor_cost - donor_penalty)
+                    + donor_penalty)
+            if benefit <= cost:
+                round_decisions.append(self._decide(
+                    False, "cost-exceeds-benefit", donor.name,
+                    recipient.name, benefit, cost,
+                    forecast_penalty=donor_penalty))
+                break
+            self.pool.move_quota(donor.name, recipient.name, 1)
+            evicted_items = evicted_bytes = 0
+            if self.pool.owned(donor.name) > self.pool.quota(donor.name):
+                evicted_items, evicted_bytes = donor.allocator.release_page()
+            for moved in (donor, recipient):
+                if moved.apply_quota_fn is not None:
+                    moved.apply_quota_fn(self.pool.quota(moved.name))
+            self.n_transfers += 1
+            if (f.last_donated[recipient.row] >= 0
+                    and self.n_ops - f.last_donated[recipient.row]
+                    <= self.bounce_window):
+                self.n_bounced += 1
+            f.last_donated[donor.row] = self.n_ops
+            round_decisions.append(self._decide(
+                True, "transfer", donor.name, recipient.name, benefit,
+                cost, evicted_items=evicted_items,
+                evicted_bytes=evicted_bytes,
+                forecast_penalty=donor_penalty))
+            press[ri] = max(0.0, float(press[ri]) - float(unit))
+            has_cost[di] = False      # the one allocator that mutated
+        f.pressure[rows] = press
+        f.evicted0[rows] = np.fromiter(
+            (t.allocator.evicted_bytes for t in ts), dtype=np.int64,
+            count=n)
+        f.denials0[rows] = np.fromiter(
+            (t.allocator.n_page_denials for t in ts), dtype=np.int64,
+            count=n)
+        f.window_demand[rows] = 0.0
+        return round_decisions
+
+    def _decide(self, approved: bool, reason: str, donor: Optional[str],
+                recipient: Optional[str], benefit: float, cost: float, *,
+                evicted_items: int = 0, evicted_bytes: int = 0,
+                forecast_penalty: float = 0.0) -> TransferDecision:
+        d = TransferDecision(approved=approved, reason=reason, donor=donor,
+                             recipient=recipient, benefit=benefit, cost=cost,
+                             evicted_items=evicted_items,
+                             evicted_bytes=evicted_bytes, at_op=self.n_ops,
+                             forecast_penalty=forecast_penalty)
+        self.decisions.append(d)
+        return d
+
+    # -- measurement ---------------------------------------------------------
+    def stats(self) -> Dict[str, Dict]:
+        """Per-tenant snapshot: units owned/quota plus allocator stats."""
+        out = {}
+        for name, t in self.tenants.items():
+            st = t.allocator.stats()
+            out[name] = {
+                "pages_owned": self.pool.owned(name),
+                "quota": self.pool.quota(name),
+                "n_resident": st.n_resident,
+                "item_bytes": st.item_bytes,
+                "waste": st.waste,
+                "n_evicted": st.n_evicted,
+                "evicted_bytes": st.evicted_bytes,
+                "n_page_denials": st.n_page_denials,
+                "n_refits": t.controller.n_refits,
+                "migration_evictions": st.migration_evictions,
+                "evicted_hot_bytes": st.evicted_hot_bytes,
+                "reused_after_evict": st.reused_after_evict,
+                "eviction_policy": st.eviction_policy,
+            }
+        return out

@@ -140,8 +140,8 @@ class RefitDecision:
 @dataclasses.dataclass
 class ScoreRequest:
     """A candidate frontier whose gates all passed, waiting for waste
-    scores (the seam the reference's arbiter uses to batch many tenants'
-    frontiers into one launch).
+    scores — the seam that lets :class:`~repro_torch.core.arbiter.TenantArbiter`
+    batch many tenants' frontiers into one ``waste_eval_fleet`` launch.
 
     Produced by :meth:`SlabController.begin_check`; hand the scores for
     ``rows`` (row 0 is the current schedule) to
@@ -161,7 +161,10 @@ class ScoreRequest:
 
 def device_sketch_kwargs(config: ControllerConfig) -> dict:
     """The :class:`~repro_torch.core.observe.DeviceSizeSketch`
-    constructor kwargs a controller with ``config`` uses."""
+    constructor kwargs a controller with ``config`` uses — shared with
+    :meth:`repro_torch.core.fleet.FleetState.sketch_view` so a
+    fleet-stacked sketch row is configured exactly like a solo
+    controller's sketch."""
     half_life = config.half_life
     if half_life is None:
         half_life = 2.0 * config.check_every
@@ -207,10 +210,65 @@ def _score_frontier(rows: List[np.ndarray], support: np.ndarray,
         return scores.cpu().numpy().astype(np.float64)
 
 
+def score_requests(reqs: List["ScoreRequest"], *,
+                   torch_device) -> List[np.ndarray]:
+    """Score several candidate frontiers — each against its OWN
+    histogram — in ONE ``waste_eval_fleet`` launch on ``torch_device``.
+
+    All requests must share ``page_size`` (the arbiter groups by it).
+    Padding is score-neutral: schedules pad by repeating their top chunk
+    (duplicate classes are waste-neutral), histograms pad with
+    size-0/freq-0 buckets (zero waste contribution), and the kernel sums
+    each row exactly as ``waste_eval`` does — so each request's scores
+    are bit for bit what its own :func:`_score_frontier` launch would
+    give. A failed launch raises; nothing falls back.
+    """
+    page_size = reqs[0].page_size
+    if any(r.page_size != page_size for r in reqs):
+        raise ValueError("score_requests needs a uniform page_size")
+    batches = [_pad_rows(r.rows) for r in reqs]
+    kmax = max(b.shape[1] for b in batches)
+    smax = max(r.support.size for r in reqs)
+    rows_out, sup_out, frq_out, splits = [], [], [], []
+    for r, b in zip(reqs, batches):
+        if b.shape[1] < kmax:
+            b = np.concatenate(
+                [b, np.repeat(b[:, -1:], kmax - b.shape[1], axis=1)], axis=1)
+        sup = np.zeros(smax, dtype=np.int64)
+        frq = np.zeros(smax, dtype=np.float64)
+        sup[:r.support.size] = r.support
+        frq[:r.freqs.size] = r.freqs
+        rows_out.append(b)
+        sup_out.append(np.broadcast_to(sup, (b.shape[0], smax)))
+        frq_out.append(np.broadcast_to(frq, (b.shape[0], smax)))
+        splits.append(b.shape[0])
+    dev = torch.device(torch_device)
+
+    def stacked(parts, dtype):
+        # concatenating broadcast views can give a non-C-ordered array
+        return torch.as_tensor(
+            np.ascontiguousarray(np.concatenate(parts, axis=0)),
+            dtype=dtype, device=dev)
+
+    chunks = stacked(rows_out, torch.int32)
+    supports = stacked(sup_out, torch.int32)
+    freqs = stacked(frq_out, torch.float32)
+    scores_dev = ops.waste_eval_fleet(chunks, supports, freqs,
+                                      page_size=page_size)
+    with deliberate_sync("controller.fleet-frontier-scores"):
+        scores = scores_dev.cpu().numpy().astype(np.float64)
+    out, at = [], 0
+    for n in splits:
+        out.append(scores[at:at + n])
+        at += n
+    return out
+
+
 class SlabController:
     """Drift-aware refit controller over a live size sketch.
 
-    One instance per allocator: feed every observed
+    One instance per allocator (or per tenant, under
+    :class:`~repro_torch.core.arbiter.TenantArbiter`): feed every observed
     size through :meth:`observe`/:meth:`observe_many`, call
     :meth:`maybe_refit` on the hot path (cheap between checks), and
     apply ``decision.chunks`` to your storage when a decision comes
@@ -241,8 +299,9 @@ class SlabController:
             raise ValueError("need at least one slab class")
         self._device = bool(self.config.device)
         if sketch is not None:
-            # Injected sketch (e.g. one carried over from the reference
-            # by repro_torch.convert) — must match the config's path.
+            # Injected sketch (e.g. a FleetSketchView over a stacked
+            # fleet row, or one carried over from the reference by
+            # repro_torch.convert) — must match the config's path.
             self.sketch = sketch
         elif self._device:
             self.sketch = DeviceSizeSketch(**device_sketch_kwargs(
@@ -393,12 +452,22 @@ class SlabController:
     @hot_path(counters=("n_checks",))
     def begin_check(self,
                     cost_bytes_fn: Optional[Callable[[np.ndarray], float]]
-                    = None):
+                    = None, *, precomputed_drift: Optional[float] = None):
         """First half of a drift check: run every gate up to candidate
         scoring. Returns ``None`` (not due / nothing observed), a
         final :class:`RefitDecision` (a gate declined), or a
         :class:`ScoreRequest` the caller must score and pass to
-        :meth:`finish_check`; :meth:`maybe_refit` scores it inline.
+        :meth:`finish_check` — the arbiter batches many tenants'
+        requests into one ``waste_eval_fleet`` launch; :meth:`maybe_refit`
+        scores a single request inline.
+
+        ``precomputed_drift`` is the fleet seam: when the arbiter has
+        already computed this controller's drift in a batched gate
+        (``repro_torch.kernels.fleet_gate.drift_gate_fleet`` over every
+        due tenant at once), passing it here skips the solo distance
+        computation — the rest of the pipeline runs unchanged. The
+        caller must have flushed any buffered device window before
+        computing the value it passes.
         """
         if self._since_check < self.config.check_every:
             return None
@@ -415,7 +484,7 @@ class SlabController:
             if self.sketch.n_observed == 0:
                 return None
             drift_dev = None
-            if self.reference is not None:
+            if self.reference is not None and precomputed_drift is None:
                 drift_dev = self.sketch.flush_window(
                     reference=self.reference,
                     metric=self.config.drift_metric)
@@ -426,7 +495,9 @@ class SlabController:
             if self.reference is None:
                 self.reference = self.sketch.weights_device
                 return None
-            if drift_dev is None:
+            if precomputed_drift is not None:
+                drift = float(precomputed_drift)
+            elif drift_dev is None:
                 drift = self.drift()    # nothing was buffered this window
             else:
                 self.sketch.n_scalar_syncs += 1
@@ -447,8 +518,10 @@ class SlabController:
                 # initial schedule is presumed fit to.
                 self.reference = live
                 return None
-            drift = histogram_distance(self.reference, live,
-                                       metric=self.config.drift_metric)
+            drift = (float(precomputed_drift)
+                     if precomputed_drift is not None
+                     else histogram_distance(self.reference, live,
+                                             metric=self.config.drift_metric))
         self.last_drift = drift
         if drift < self.config.drift_threshold:
             if self._forecast_on:
@@ -581,7 +654,8 @@ class SlabController:
     def finish_check(self, req: ScoreRequest,
                      scores: np.ndarray) -> RefitDecision:
         """Second half of a drift check: turn the waste ``scores`` of
-        ``req.rows`` into the final decision."""
+        ``req.rows`` (however they were computed — inline or in a
+        fleet-batched launch) into the final decision."""
         cfg = self.config
         drift = req.drift
         forecast_drift = req.forecast_drift

@@ -461,29 +461,40 @@ def _aligned(a: Tuple[np.ndarray, np.ndarray],
 
 def _dense_distance(wa: torch.Tensor, wb: torch.Tensor,
                     metric: str) -> torch.Tensor:
-    """Distance between two dense weight tensors on one bucket grid, as a
-    0-d float32 tensor on their device (no host sync)."""
-    wa = wa.to(torch.float32)
-    wb = wb.to(torch.float32)
-    ta = wa.sum()
-    tb = wb.sum()
+    """Distance between dense weight tensors on one bucket grid, reduced
+    over the last axis: two ``(buckets,)`` vectors give a 0-d float32
+    tensor, two ``[n, buckets]`` stacks give ``(n,)`` (the fleet gate),
+    on their device with no host sync.
+
+    The sums run in float64 and the result is rounded to float32 once:
+    the card reduces a lone vector and the rows of a stack in different
+    orders, and float32 sums would then differ in the last bit between a
+    tenant's solo gate and the fleet gate. In float64 those differences
+    vanish in the final rounding, so both gates give the same float32
+    drift."""
+    wa = wa.to(torch.float64)
+    wb = wb.to(torch.float64)
+    ta = wa.sum(dim=-1, keepdim=True)
+    tb = wb.sum(dim=-1, keepdim=True)
     pa = wa / torch.clamp(ta, min=1e-30)
     pb = wb / torch.clamp(tb, min=1e-30)
     if metric == "l1":
-        d = 0.5 * (pa - pb).abs().sum()
+        d = 0.5 * (pa - pb).abs().sum(dim=-1)
     else:
         # emd on a uniform bucket grid: the bucket width cancels, and
         # the host metric's span is the occupied extent (empty edge
         # buckets contribute zero cdf gap, so only the denominator
         # needs the occupied first/last bucket).
         occupied = ((wa > 0) | (wb > 0)).to(torch.uint8)
-        first = torch.argmax(occupied)
-        last = wa.shape[0] - 1 - torch.argmax(occupied.flip(0))
-        cdf_gap = torch.cumsum(pa - pb, dim=0).abs()[:-1]
-        d = cdf_gap.sum() / torch.clamp(last - first, min=1)
+        first = torch.argmax(occupied, dim=-1)
+        last = wa.shape[-1] - 1 - torch.argmax(occupied.flip(-1), dim=-1)
+        cdf_gap = torch.cumsum(pa - pb, dim=-1).abs()[..., :-1]
+        d = cdf_gap.sum(dim=-1) / torch.clamp(last - first, min=1)
     # empty-vs-empty is 0, empty-vs-mass is 1 (host semantics)
+    ta, tb = ta.squeeze(-1), tb.squeeze(-1)
     both = (ta > 0) & (tb > 0)
-    return torch.where(both, d, (ta != tb).to(torch.float32))
+    return torch.where(both, d, (ta != tb).to(torch.float64)).to(
+        torch.float32)
 
 
 def histogram_distance_device(wa: torch.Tensor, wb: torch.Tensor, *,

@@ -1,10 +1,16 @@
 // Batched slab-schedule waste evaluation for Hopper (sm_90a).
 //
-// Replaces the TPU kernel repro/kernels/waste_eval.py::waste_eval_pallas.
-// Row b of `chunks` (B, K) is a candidate schedule; every size of the
-// histogram (support, freqs) goes to the smallest chunk that covers it,
-// and a size no chunk covers is charged max(ceil(s/page), 1) whole pages
-// minus s. out[b] = sum over sizes of waste * freq.
+// Replaces the TPU kernels repro/kernels/waste_eval.py::waste_eval_pallas
+// and waste_eval_fleet_pallas. Row b of `chunks` (B, K) is a candidate
+// schedule; every size of the histogram (support, freqs) goes to the
+// smallest chunk that covers it, and a size no chunk covers is charged
+// max(ceil(s/page), 1) whole pages minus s. out[b] = sum over sizes of
+// waste * freq. waste_eval_launch scores every row against one (S,)
+// histogram; waste_eval_fleet_launch scores row b against row b of
+// (B, S) histograms (one launch for every pending tenant's frontier).
+// Both run the same per-row loop below, the fleet entry only offsetting
+// the histogram by b * S, so a row whose histogram is replicated gets
+// the bits the single-histogram launch gives.
 //
 // The TPU grid reduces over S by `+=` into an output block that its
 // sequential grid revisits. CUDA blocks run in parallel, so here one
@@ -25,7 +31,9 @@
 // Bound: on the main path B is 3 (controller frontier) or K*20 (a
 // parallel hill-climb step) and S a few hundred, i.e. a few KB of reads
 // and under 1e7 compares: launch latency bounds it, not bytes or
-// operations. One launch per frontier is what the design buys.
+// operations. One launch per frontier is what the design buys. The fleet
+// entry reads B*S histogram entries (3 rows per pending tenant), still
+// a few hundred KB at a thousand tenants.
 #include <cuda_runtime.h>
 
 namespace {
@@ -37,12 +45,15 @@ __global__ void __launch_bounds__(kThreads)
 waste_eval_kernel(const int* __restrict__ chunks,
                   const int* __restrict__ support,
                   const float* __restrict__ freqs,
-                  float* __restrict__ out, int k, int s, int page_size) {
+                  float* __restrict__ out, int k, int s, int page_size,
+                  long long hist_stride) {
   __shared__ int raw[kMaxK];
   __shared__ int sorted[kMaxK];
   __shared__ double partial[kThreads];
   const int tid = threadIdx.x;
   const int* row = chunks + static_cast<long long>(blockIdx.x) * k;
+  support += blockIdx.x * hist_stride;  // 0: one shared histogram
+  freqs += blockIdx.x * hist_stride;
 
   for (int i = tid; i < k; i += kThreads) raw[i] = row[i];
   __syncthreads();
@@ -98,7 +109,23 @@ extern "C" int waste_eval_launch(const void* chunks, const void* support,
     waste_eval_kernel<<<b, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(chunks), static_cast<const int*>(support),
         static_cast<const float*>(freqs), static_cast<float*>(out), k, s,
-        page_size);
+        page_size, 0);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// chunks (b, k) int32, supports (b, s) int32, freqs (b, s) float32 ->
+// out (b,) float32, on `stream`. Returns cudaGetLastError().
+extern "C" int waste_eval_fleet_launch(const void* chunks,
+                                       const void* supports,
+                                       const void* freqs, void* out, int b,
+                                       int k, int s, int page_size,
+                                       void* stream) {
+  if (b > 0) {
+    waste_eval_kernel<<<b, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(chunks), static_cast<const int*>(supports),
+        static_cast<const float*>(freqs), static_cast<float*>(out), k, s,
+        page_size, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

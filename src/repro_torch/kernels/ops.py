@@ -14,11 +14,14 @@ from typing import Optional
 import torch
 
 from repro_torch.core.distribution import PAGE_SIZE
+from repro_torch.kernels import kv_scatter as _kv
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import sketch_update as _sketch
+from repro_torch.kernels import slab_attention as _attn
 from repro_torch.kernels import waste_eval as _waste
 
 _INT32_MAX = (1 << 31) - 1
+_GRID_Y_MAX = 65535   # batch slots ride on the grid's y axis
 
 
 def resolve_device(torch_device) -> torch.device:
@@ -81,6 +84,40 @@ def waste_eval(chunk_batch: torch.Tensor, support: torch.Tensor,
 
 
 waste_eval.n_launches = 0
+
+
+def waste_eval_fleet(chunk_batch: torch.Tensor, supports: torch.Tensor,
+                     freqs: torch.Tensor, *,
+                     page_size: int = PAGE_SIZE) -> torch.Tensor:
+    """(B, K) int32 schedules x (B, S) int32 PER-ROW support x (B, S)
+    float32 freqs -> (B,) float32 waste: row b against histogram b, in
+    one launch (every pending tenant's frontier at once). Pad histograms
+    with size-0/freq-0 entries; a replicated row scores bit for bit as
+    :func:`waste_eval` does."""
+    _check(chunk_batch, "chunk_batch", torch.int32, 2)
+    dev = chunk_batch.device
+    _check(supports, "supports", torch.int32, 2, dev)
+    _check(freqs, "freqs", torch.float32, 2, dev)
+    b, k = chunk_batch.shape
+    if supports.shape != freqs.shape or supports.shape[0] != b:
+        raise ValueError(f"supports {tuple(supports.shape)} and freqs "
+                         f"{tuple(freqs.shape)} must both be (B={b}, S)")
+    if not 1 <= k <= _waste.MAX_K:
+        raise ValueError(f"need 1 <= K <= {_waste.MAX_K} chunks per row, "
+                         f"got {k}")
+    if not 1 <= page_size <= _INT32_MAX:
+        raise ValueError(f"page_size out of range: {page_size}")
+    if dev.type == "cpu":
+        return _ref.waste_eval_fleet_ref(chunk_batch, supports, freqs,
+                                         page_size=page_size)
+    out = torch.empty(b, dtype=torch.float32, device=dev)
+    _waste.launch_fleet(chunk_batch, supports, freqs, out,
+                        page_size=page_size)
+    waste_eval_fleet.n_launches += 1
+    return out
+
+
+waste_eval_fleet.n_launches = 0
 
 
 def _check_out(out, state: torch.Tensor) -> torch.Tensor:
@@ -162,3 +199,128 @@ def sketch_update(state: torch.Tensor, bucket_idx: torch.Tensor,
 
 
 sketch_update.n_launches = 0
+
+
+def _check_pool(pool: torch.Tensor, name: str = "pool") -> None:
+    _check(pool, name, torch.float32, 3)
+    if pool.shape[0] < 1:
+        raise ValueError(f"{name} must have at least one row")
+
+
+def kv_append(pool: torch.Tensor, rows: torch.Tensor,
+              vals: torch.Tensor) -> torch.Tensor:
+    """In place: ``pool[rows[b]] = vals[b]`` for every ``rows[b] >= 0``
+    of a float32 (T, H, D) pool, int32 (B,) rows (-1 skips the slot) and
+    float32 (B, H, D) vals. Live rows must be distinct. Returns
+    ``pool``."""
+    _check_pool(pool)
+    dev = pool.device
+    _check(rows, "rows", torch.int32, 1, dev)
+    _check(vals, "vals", torch.float32, 3, dev)
+    b = rows.shape[0]
+    if vals.shape != (b,) + tuple(pool.shape[1:]):
+        raise ValueError(f"vals {tuple(vals.shape)} must be (B={b}, "
+                         f"{pool.shape[1]}, {pool.shape[2]})")
+    if b > _GRID_Y_MAX:
+        raise ValueError(f"at most {_GRID_Y_MAX} slots per call, got {b}")
+    if dev.type == "cpu":
+        return _kv.kv_append_ref(pool, rows, vals)
+    _kv.launch_append(pool, rows, vals)
+    kv_append.n_launches += 1
+    return pool
+
+
+kv_append.n_launches = 0
+
+
+def kv_chunk_copy(pool: torch.Tensor, src_starts: torch.Tensor,
+                  dst_starts: torch.Tensor, n_tokens: torch.Tensor, *,
+                  max_copy_tokens: int) -> torch.Tensor:
+    """In place: M range moves of whole ``BLOCK_T``-token tiles inside a
+    float32 (T, H, D) pool, as if run one after another in array order
+    (a later move may overwrite what an earlier one read). Int32 (M,)
+    descriptors: move i copies ``n_tokens[i]`` rounded up to tiles (at
+    most ``max_copy_tokens``; 0 skips) from ``src_starts[i]`` to
+    ``dst_starts[i]``, both clamped into ``[0, T - max_copy_tokens]``.
+    T must be a multiple of ``BLOCK_T``. On the card one launch runs the
+    moves in order, staging a move whose ranges overlap through a
+    (max_copy_tokens, H, D) scratch tensor. Returns ``pool``."""
+    _check_pool(pool)
+    dev = pool.device
+    for name, t in (("src_starts", src_starts), ("dst_starts", dst_starts),
+                    ("n_tokens", n_tokens)):
+        _check(t, name, torch.int32, 1, dev)
+    m = src_starts.shape[0]
+    if dst_starts.shape != (m,) or n_tokens.shape != (m,):
+        raise ValueError("src_starts, dst_starts and n_tokens must share "
+                         "an (M,) shape")
+    if m > _kv.MAX_MOVES:
+        raise ValueError(f"at most {_kv.MAX_MOVES} moves per call, got {m}")
+    t = pool.shape[0]
+    if t % _kv.BLOCK_T:
+        raise ValueError(f"pool rows {t} not a multiple of {_kv.BLOCK_T}")
+    if not 1 <= max_copy_tokens <= t:
+        raise ValueError(f"max_copy_tokens must be in [1, {t}], got "
+                         f"{max_copy_tokens}")
+    if dev.type == "cpu":
+        return _kv.kv_chunk_copy_ref(pool, src_starts, dst_starts, n_tokens,
+                                     max_copy_tokens=max_copy_tokens)
+    scratch = torch.empty((max_copy_tokens,) + tuple(pool.shape[1:]),
+                          dtype=torch.float32, device=dev)
+    _kv.launch_chunk_copy(pool, scratch, src_starts, dst_starts, n_tokens,
+                          max_copy_tokens=max_copy_tokens)
+    kv_chunk_copy.n_launches += 1
+    return pool
+
+
+kv_chunk_copy.n_launches = 0
+
+
+def slab_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                          v_pool: torch.Tensor, starts: torch.Tensor,
+                          lens: torch.Tensor, *, max_chunk_tokens: int,
+                          sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Flash-decoding over a contiguous slab KV pool: float32 q
+    (B, Hq, D), float32 (T, Hkv, D) pools, int32 (B,) starts and lens ->
+    (B, Hq, D). Sequence b attends over pool rows ``starts[b] + w`` for
+    ``w < min(lens[b], max_chunk_tokens)``; GQA with G = Hq / Hkv <= 8,
+    D <= 256. An empty sequence gives 0."""
+    _check(q, "q", torch.float32, 3)
+    dev = q.device
+    _check_pool(k_pool, "k_pool")
+    _check(v_pool, "v_pool", torch.float32, 3, dev)
+    _check(starts, "starts", torch.int32, 1, dev)
+    _check(lens, "lens", torch.int32, 1, dev)
+    if k_pool.device != dev:
+        raise ValueError(f"k_pool is on {k_pool.device}, expected {dev}")
+    b, hq, d = q.shape
+    t, hkv, dk = k_pool.shape
+    if v_pool.shape != k_pool.shape or dk != d:
+        raise ValueError(f"pools {tuple(k_pool.shape)} / "
+                         f"{tuple(v_pool.shape)} must be (T, Hkv, D={d})")
+    if starts.shape != (b,) or lens.shape != (b,):
+        raise ValueError(f"starts and lens must be (B={b},)")
+    if hkv < 1 or hq % hkv or not 1 <= hq // hkv <= _attn.MAX_G:
+        raise ValueError(f"Hq={hq} must be G * Hkv (Hkv={hkv}) with "
+                         f"1 <= G <= {_attn.MAX_G}")
+    if not 1 <= d <= _attn.MAX_D:
+        raise ValueError(f"need 1 <= D <= {_attn.MAX_D}, got {d}")
+    if b > _GRID_Y_MAX:
+        raise ValueError(f"at most {_GRID_Y_MAX} sequences per call")
+    if not 0 <= max_chunk_tokens <= _INT32_MAX:
+        raise ValueError(f"max_chunk_tokens out of range: "
+                         f"{max_chunk_tokens}")
+    if sm_scale is None:
+        sm_scale = 1.0 / (d ** 0.5)
+    if dev.type == "cpu":
+        return _ref.slab_decode_attention_window_ref(
+            q, k_pool, v_pool, starts, lens,
+            max_chunk_tokens=max_chunk_tokens, sm_scale=sm_scale)
+    out = torch.empty_like(q)
+    _attn.launch(q, k_pool, v_pool, starts, lens, out,
+                 max_chunk_tokens=max_chunk_tokens, sm_scale=sm_scale)
+    slab_decode_attention.n_launches += 1
+    return out
+
+
+slab_decode_attention.n_launches = 0

@@ -9,6 +9,7 @@ from repro_torch.memcached.slab_allocator import (ReconfigureReport,
 from repro_torch.memcached.traffic import (TenantOp, all_paper_workloads,
                                            diurnal_multimodal_traffic,
                                            diurnal_traffic, drift_traffic,
+                                           fleet_stream,
                                            multitenant_phased_ops,
                                            paper_histogram, paper_traffic,
                                            phase_shift_traffic,
@@ -19,7 +20,8 @@ __all__ = [
     "SlabAllocator", "SlabStats", "run_workload", "all_paper_workloads",
     "diurnal_multimodal_traffic",
     "diurnal_traffic", "drift_traffic", "paper_histogram", "paper_traffic",
-    "phase_shift_traffic", "TenantOp", "multitenant_phased_ops",
+    "phase_shift_traffic", "TenantOp", "fleet_stream",
+    "multitenant_phased_ops",
     "EvictionPolicy", "ColdestLRU", "SegmentedLRU", "RankedPageEviction",
     "make_policy", "zipfian_rereference_ops",
 ]

@@ -20,7 +20,7 @@ hardcoded behaviour (see ``docs/eviction.md`` for the full contract):
   `page_victims` for a page reclaim), and *prices* future evictions
   (`page_reclaim_cost_bytes`, `class_teardown_cost_bytes`) — the two
   numbers the :class:`~repro_torch.core.controller.SlabController` cost
-  model and the :class:`~repro.core.arbiter.TenantArbiter` donor
+  model and the :class:`~repro_torch.core.arbiter.TenantArbiter` donor
   selection consume.
 * :class:`ColdestLRU` — the extracted legacy behaviour: pure
   per-class LRU, wholesale cost accounting (every resident byte of a
@@ -40,7 +40,7 @@ Policies are duck-typed against a minimal *slab-class view*: any
 object with ``chunk_size`` (int) and ``lru`` (an ``OrderedDict``
 mapping key → stored size, least recently used first). Both
 ``repro_torch.memcached.SlabAllocator._SlabClass`` and the retained-chunk
-holders inside :class:`repro.serving.KVSlabPool` satisfy it, so the
+holders inside :class:`repro_torch.serving.KVSlabPool` satisfy it, so the
 same three policies price byte chunks and KV token pages.
 """
 from __future__ import annotations

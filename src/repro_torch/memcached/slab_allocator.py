@@ -26,7 +26,7 @@ the controller's model charges — ``migration_evictions`` and
 
 Multi-tenancy (the arbitration layer): instead of a private
 ``mem_limit``, an allocator can draw pages from a shared
-:class:`repro.core.arbiter.PagePool` (``page_pool=`` + ``tenant=``).
+:class:`repro_torch.core.arbiter.PagePool` (``page_pool=`` + ``tenant=``).
 Every page it holds is then tenant-tagged in the pool, ``release_page``
 gives the cheapest-to-reclaim page back (the cross-tenant analogue of
 ``slabs reassign``), and ``page_release_cost_bytes`` prices that release
@@ -115,7 +115,7 @@ class SlabAllocator:
 
     Memory comes either from an unbounded/`mem_limit`-bounded private
     pool (single-tenant, the paper's experiment shape) or from a shared
-    tenant-tagged :class:`~repro.core.arbiter.PagePool`
+    tenant-tagged :class:`~repro_torch.core.arbiter.PagePool`
     (``page_pool=`` + ``tenant=``, the multi-tenant mode the
     ``TenantArbiter`` drives). Live reconfiguration is page-conserving:
     ``reassign`` moves pages between classes, ``reconfigure`` retargets

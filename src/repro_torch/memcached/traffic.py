@@ -19,7 +19,8 @@ arrival intensity a raised cosine shifted out of phase with the others
 (tenants peak at different times — the setting where cross-tenant page
 arbitration has something to win), with TTL-style deletes so an
 off-peak tenant's pages accumulate free chunks (the holes arbitration
-reclaims).
+reclaims). ``fleet_stream`` fans that stream out to a fleet of
+hundreds or thousands of tenants.
 
 Re-reference skew (what the eviction policies serve):
 ``zipfian_rereference_ops`` draws get/set traffic over a fixed key
@@ -35,7 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import heapq
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -319,3 +320,34 @@ def zipfian_rereference_ops(workloads: Sequence[PaperWorkload], *,
             key, size = f"t{t}:z{j}", int(sizes[t][j])
         ops.append(TenantOp(t, "get" if g else "set", key, size))
     return ops
+
+
+def fleet_stream(n_tenants: int, n_sets: int, seed: int
+                 ) -> List[Tuple[int, TenantOp]]:
+    """The paper's phased multi-tenant stream fanned out to a fleet of
+    ``n_tenants`` (the stream of the reference's fleet arbitration
+    bench, ``benchmarks/fleet_bench.py``).
+
+    ``multitenant_phased_ops`` over all five operating points
+    (``trough_mix=0.5``) interleaves one stream per operating point;
+    each set op is routed round-robin to one of the physical tenants
+    backing that operating point (``logical + W*k mod n``), so every
+    fleet tenant sees one workload's sizes and phase. Deletes follow
+    their key to whichever tenant stored it. Returns
+    ``(physical tenant, op)`` pairs.
+    """
+    w = len(PAPER_WORKLOADS)
+    base = multitenant_phased_ops(PAPER_WORKLOADS, n_sets=n_sets,
+                                  trough_mix=0.5, seed=seed)
+    cycles = max(1, -(-n_tenants // w))
+    cnt = [0] * w
+    home: Dict[Tuple[int, str], int] = {}
+    out: List[Tuple[int, TenantOp]] = []
+    for op in base:
+        k = (op.tenant, op.key)
+        if op.op == "set" and k not in home:
+            home[k] = (op.tenant + w * cnt[op.tenant]) % n_tenants
+            cnt[op.tenant] = (cnt[op.tenant] + 1) % cycles
+        out.append((home[k], op))
+    return out
+

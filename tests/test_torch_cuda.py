@@ -6,10 +6,12 @@ fixture). Run on the card with
 Imports neither jax nor the reference package, so it runs where only
 torch is installed.
 
-Tolerances: waste_eval sums integer terms exactly in double, so it must
-equal its plain version bit for bit; sketch_window's ``powf`` and the
-plain version's ``torch.pow`` may differ in the last float32 bit, so its
-weights are held to rtol/atol 1e-5 (exact when decay is 1).
+Tolerances: waste_eval and waste_eval_fleet sum integer terms exactly
+in double, so they must equal their plain versions bit for bit;
+sketch_window's ``powf`` and the plain version's ``torch.pow`` may differ
+in the last float32 bit, so its weights are held to rtol/atol 1e-5
+(exact when decay is 1). The KV scatters move bits (bit for bit); decode
+attention sums in another order than its plain version (rtol/atol 1e-5).
 """
 import numpy as np
 import pytest
@@ -21,10 +23,16 @@ from repro_torch.core import (ControllerConfig, DeviceSizeSketch,  # noqa: E402
                               schedule_with_default_tail, size_histogram)
 from repro_torch.core.distribution import PAPER_WORKLOADS  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
-from repro_torch.kernels.ref import waste_eval_ref  # noqa: E402
+from repro_torch.kernels.kv_scatter import (BLOCK_T,  # noqa: E402
+                                            kv_append_ref,
+                                            kv_chunk_copy_ref)
+from repro_torch.kernels.ref import (  # noqa: E402
+    slab_decode_attention_window_ref, waste_eval_fleet_ref, waste_eval_ref)
 from repro_torch.kernels.sketch_update import (sketch_update_ref,  # noqa: E402
                                                sketch_window_ref)
 from repro_torch.memcached import phase_shift_traffic  # noqa: E402
+from repro_torch.serving import (KVSlabPool, OfflineHarness,  # noqa: E402
+                                 lognormal_request_workload)
 
 pytestmark = pytest.mark.cuda
 
@@ -216,3 +224,183 @@ def test_entry_points_default_to_the_card(cuda):
     assert DeviceSizeSketch().torch_device.type == "cuda"
     assert SlabPolicy().torch_device.type == "cuda"
     assert ControllerConfig().torch_device == "cuda"
+
+
+# -- the arbitration and serving slice's kernels ------------------------------
+
+@pytest.mark.parametrize("b,k,s", [(1, 1, 1), (9, 6, 200), (40, 12, 700),
+                                   (3, 1024, 50), (2, 4, 0)])
+def test_waste_eval_fleet_kernel_equals_plain(cuda, b, k, s):
+    rng = np.random.default_rng(b + k + s)
+    chunks = torch.as_tensor(rng.integers(1, 40_000, (b, k)),
+                             dtype=torch.int32)
+    sup = torch.as_tensor(np.sort(rng.integers(0, 60_000, (b, s)), axis=1),
+                          dtype=torch.int32)
+    frq = torch.as_tensor(rng.integers(0, 900, (b, s)), dtype=torch.float32)
+    want = waste_eval_fleet_ref(chunks, sup, frq, page_size=1 << 14)
+    before = ops.waste_eval_fleet.n_launches
+    got = ops.waste_eval_fleet(chunks.to(cuda), sup.to(cuda), frq.to(cuda),
+                               page_size=1 << 14)
+    torch.cuda.synchronize()
+    assert ops.waste_eval_fleet.n_launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_waste_eval_fleet_replicated_rows_equal_waste_eval(cuda):
+    rng = np.random.default_rng(2)
+    chunks = torch.as_tensor(rng.integers(48, 20_000, (33, 7)),
+                             dtype=torch.int32, device=cuda)
+    sup = torch.as_tensor(np.sort(rng.integers(1, 30_000, 400)),
+                          dtype=torch.int32, device=cuda)
+    for frq in (torch.as_tensor(rng.integers(1, 500, 400)),
+                torch.as_tensor(rng.uniform(0.1, 7.0, 400))):
+        frq = frq.to(device=cuda, dtype=torch.float32)
+        one = ops.waste_eval(chunks, sup, frq, page_size=4096)
+        fleet = ops.waste_eval_fleet(chunks, sup.expand(33, -1).contiguous(),
+                                     frq.expand(33, -1).contiguous(),
+                                     page_size=4096)
+        assert torch.equal(one, fleet)
+
+
+@pytest.mark.parametrize("h,d", [(8, 128), (1, 16), (1, 3)])
+def test_kv_append_kernel_equals_plain(cuda, h, d):
+    rng = np.random.default_rng(h * d)
+    t = 4 * BLOCK_T
+    pool = torch.as_tensor(rng.normal(size=(t, h, d)), dtype=torch.float32)
+    rows = rng.permutation(t - 1)[:64].astype(np.int32)
+    rows[::5] = -1                                   # skipped slots
+    rows = torch.as_tensor(rows)
+    vals = torch.as_tensor(rng.normal(size=(64, h, d)), dtype=torch.float32)
+    want = kv_append_ref(pool.clone(), rows, vals)
+    card = pool.to(cuda)
+    before = ops.kv_append.n_launches
+    assert ops.kv_append(card, rows.to(cuda), vals.to(cuda)) is card
+    torch.cuda.synchronize()
+    assert ops.kv_append.n_launches == before + 1
+    assert torch.equal(card.cpu(), want)
+
+
+CHUNK_CASES = [
+    # (pool tiles, src, dst, n_tokens, max_copy_tokens)
+    (8, [0, 2], [4, 6], [2 * BLOCK_T, BLOCK_T], 2 * BLOCK_T),
+    (4, [0], [2], [0], 2 * BLOCK_T),                  # zero length
+    (4, [0], [2], [5], 2 * BLOCK_T),                  # tile rounding
+    (6, [0, 3], [2, 0], [BLOCK_T, BLOCK_T], BLOCK_T),  # WAR
+    (6, [0, 1], [2, 3], [BLOCK_T, 0], 4 * BLOCK_T),   # junk tile
+    (8, [0, 2, 5], [2, 4, 4], [BLOCK_T, 2 * BLOCK_T, BLOCK_T],
+     2 * BLOCK_T),                                    # RAW and WAW
+    (6, [0], [1], [3 * BLOCK_T], 3 * BLOCK_T),        # self-overlap
+    (4, [0, 1], [2, 9], [-200, 3], BLOCK_T),          # negative, clamped
+]
+
+
+@pytest.mark.parametrize("case", range(len(CHUNK_CASES)))
+def test_kv_chunk_copy_kernel_equals_plain(cuda, case):
+    tiles, src, dst, n, w = CHUNK_CASES[case]
+    rng = np.random.default_rng(case)
+    pool = torch.as_tensor(rng.normal(size=(tiles * BLOCK_T, 2, 8)),
+                           dtype=torch.float32)
+    args = [torch.as_tensor(np.asarray(a) * (BLOCK_T if i < 2 else 1),
+                            dtype=torch.int32)
+            for i, a in enumerate((src, dst, n))]
+    want = kv_chunk_copy_ref(pool.clone(), *args, max_copy_tokens=w)
+    card = pool.to(cuda)
+    before = ops.kv_chunk_copy.n_launches
+    ops.kv_chunk_copy(card, *[a.to(cuda) for a in args], max_copy_tokens=w)
+    torch.cuda.synchronize()
+    assert ops.kv_chunk_copy.n_launches == before + 1
+    assert torch.equal(card.cpu(), want)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_kv_chunk_copy_kernel_many_moves(cuda, seed):
+    """64 random tile-aligned moves at the harness's widths, overlapping
+    freely: the one-cluster kernel equals the sequential plain version."""
+    rng = np.random.default_rng(seed)
+    tiles, w = 40, 8 * BLOCK_T
+    pool = torch.as_tensor(rng.normal(size=(tiles * BLOCK_T, 8, 128)),
+                           dtype=torch.float32)
+    src = torch.as_tensor(rng.integers(0, tiles - 8, 64) * BLOCK_T,
+                          dtype=torch.int32)
+    dst = torch.as_tensor(rng.integers(0, tiles - 8, 64) * BLOCK_T,
+                          dtype=torch.int32)
+    n = torch.as_tensor(rng.integers(-BLOCK_T, w + 1, 64), dtype=torch.int32)
+    want = kv_chunk_copy_ref(pool.clone(), src, dst, n, max_copy_tokens=w)
+    card = pool.to(cuda)
+    ops.kv_chunk_copy(card, src.to(cuda), dst.to(cuda), n.to(cuda),
+                      max_copy_tokens=w)
+    assert torch.equal(card.cpu(), want)
+
+
+@pytest.mark.parametrize("case", [3, 5, 6])
+def test_kv_chunk_copy_kernel_odd_row_width(cuda, case):
+    """Rows of 15 floats take the kernel's scalar (non-float4) copy."""
+    tiles, src, dst, n, w = CHUNK_CASES[case]
+    rng = np.random.default_rng(case)
+    pool = torch.as_tensor(rng.normal(size=(tiles * BLOCK_T, 3, 5)),
+                           dtype=torch.float32)
+    args = [torch.as_tensor(np.asarray(a) * (BLOCK_T if i < 2 else 1),
+                            dtype=torch.int32)
+            for i, a in enumerate((src, dst, n))]
+    want = kv_chunk_copy_ref(pool.clone(), *args, max_copy_tokens=w)
+    card = pool.to(cuda)
+    ops.kv_chunk_copy(card, *[a.to(cuda) for a in args], max_copy_tokens=w)
+    assert torch.equal(card.cpu(), want)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("g", [1, 4, 8])
+def test_attention_kernel_matches_plain(cuda, d, g):
+    rng = np.random.default_rng(d + g)
+    lens = np.asarray([0, 1, 127, 128, 1024, 700], np.int32)
+    chunk, hkv = 1024, 2
+    b = lens.size
+    t = b * chunk + BLOCK_T
+    q = torch.as_tensor(rng.normal(size=(b, hkv * g, d)), dtype=torch.float32)
+    k = torch.as_tensor(rng.normal(size=(t, hkv, d)), dtype=torch.float32)
+    v = torch.as_tensor(rng.normal(size=(t, hkv, d)), dtype=torch.float32)
+    starts = torch.as_tensor(np.arange(b) * chunk, dtype=torch.int32)
+    lens_t = torch.as_tensor(lens)
+    want = slab_decode_attention_window_ref(q, k, v, starts, lens_t,
+                                            max_chunk_tokens=chunk)
+    args = [x.to(cuda) for x in (q, k, v, starts, lens_t)]
+    before = ops.slab_decode_attention.n_launches
+    got = ops.slab_decode_attention(*args, max_chunk_tokens=chunk)
+    torch.cuda.synchronize()
+    assert ops.slab_decode_attention.n_launches == before + 1
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got[0].cpu(), torch.zeros_like(got[0].cpu()))
+    # a sequence's bits do not depend on the batch it is in
+    for i in (2, 4):
+        alone = ops.slab_decode_attention(
+            args[0][i:i + 1].contiguous(), args[1], args[2],
+            args[3][i:i + 1].contiguous(), args[4][i:i + 1].contiguous(),
+            max_chunk_tokens=chunk)
+        assert torch.equal(alone[0], got[i])
+
+
+def test_decode_graph_replay_equals_eager(cuda):
+    """The batched harness (one CUDA-graph replay per tick) against the
+    legacy one (eager, a request at a time) at the serving phase's
+    widths: identical tokens, decisions and pools, one replay a tick,
+    and the kernels' counters counting their wrappers' calls only (the
+    warm-up and the capture), never a replay."""
+    def run(mode):
+        pool = KVSlabPool(32768, (128, 256, 512, 1024))
+        h = OfflineHarness(pool, max_batch=16, mode=mode, hkv=8, d=128)
+        wl = lognormal_request_workload(
+            np.random.default_rng(7), 24, prompt_mean=96.0, prompt_std=64.0,
+            output_mean=40.0, output_std=5.0, arrival_rate=4.0)
+        return h, h.run(wl)
+
+    before = ops.slab_decode_attention.n_launches
+    gh, graph = run("batched")
+    launches = ops.slab_decode_attention.n_launches - before
+    eh, eager = run("legacy")
+    assert graph.decisions() == eager.decisions()
+    assert graph.tokens == eager.tokens and graph.generated_tokens > 0
+    assert graph.realloc_copies > 0
+    assert torch.equal(gh._k, eh._k) and torch.equal(gh._v, eh._v)
+    assert graph.n_decode_dispatches <= graph.ticks
+    assert graph.n_decode_dispatches > 2
+    assert launches == 2                 # the warm-up and the capture
