@@ -13,7 +13,10 @@ non-zero before the last line is printed:
 3. kernels against plain: each of the six kernels at the main path's
    shapes against its plain PyTorch version, with kernel, plain, bound
    and library times (CUDA events, median of 20 runs after warm-up; see
-   time_ms);
+   time_ms) and each shape's bound share (bound / kernel time) and ratio
+   to the library call; the sketch window also against its rows'
+   launches and, at decay 1, its plain version, bit for bit, and decode
+   attention alone and reordered against its batched bits;
 4. paper tables: Tables 1-5 at 1,000,000 items — the exact DP, the
    parallel hill climb driven by the waste_eval kernel and by the plain
    evaluator (both on the card), and the paper's Algorithm 1;
@@ -242,6 +245,25 @@ def bound(bytes_moved: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def shape_entry(label: str, shape, ms: float, bound_ms: float,
+                library_ms=None) -> dict:
+    """One timed shape of a kernel: its time, its share of the bound
+    (bound_ms / ms) and its ratio to the library call (ms / library_ms,
+    null without one)."""
+    return {"label": label, "shape": list(shape), "ms": ms,
+            "bound_ms": bound_ms, "library_ms": library_ms,
+            "bound_share": bound_ms / ms,
+            "library_ratio": None if library_ms is None
+            else ms / library_ms}
+
+
+def shares(entry: dict) -> str:
+    """The printed form of a shape's bound share and library ratio."""
+    lib = entry["library_ratio"]
+    return (f"bound_share={entry['bound_share']:.3f} vs_library="
+            + ("null" if lib is None else f"{lib:.2f}x"))
+
+
 def tokens_digest(tokens) -> str:
     """sha256 of a harness's generated tokens, ``{rid: [token, ...]}``."""
     rows = sorted((int(k), [int(t) for t in v]) for k, v in tokens.items())
@@ -342,15 +364,17 @@ def serving_kernels(torch, dev, cyc, results) -> None:
         *args, page_size=FLEET_PAGE), cyc)
     plain_ms, plain_call = time_ms(torch, lambda: waste_eval_fleet_ref(
         *args, page_size=FLEET_PAGE), cyc)
+    sh = shape_entry("gate", (b_, k_, s_max), ms, bms)
     results["waste_eval_fleet"] = dict(
         route="cuda", source="src/repro_torch/csrc/waste_eval.cu",
         replaces="src/repro/kernels/waste_eval.py:135", max_abs_err=err,
         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-        library_ms=None)
+        library_ms=None, shapes=[sh])
     print(f"[kernel] waste_eval_fleet (B,K,S)=({b_},{k_},{s_max}) "
           f"max_abs_err={err} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"bound_ms={bms:.2e} ({by}) library_ms=null; per call with host "
-          f"overhead: {call:.4f} / plain {plain_call:.4f}", flush=True)
+          f"bound_ms={bms:.2e} ({by}) library_ms=null {shares(sh)}; per "
+          f"call with host overhead: {call:.4f} / plain {plain_call:.4f}",
+          flush=True)
 
     # The serving harness's pools: 32,768 tokens + a 1,024-token tail.
     hkv, d, w_max, batch = 8, 128, 1024, 64
@@ -379,15 +403,16 @@ def serving_kernels(torch, dev, cyc, results) -> None:
         scratch, rows_t, vals), cyc)
     lib_ms, lib_call = time_ms(torch, lambda: scratch.index_copy_(
         0, live_rows, live_vals), cyc)
+    sh = shape_entry("tick", (t_pool, hkv, d, batch), ms, bms, lib_ms)
     results["kv_append"] = dict(
         route="cuda", source="src/repro_torch/csrc/kv_scatter.cu",
         replaces="src/repro/kernels/kv_scatter.py:47", max_abs_err=err,
         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-        library_ms=lib_ms)
+        library_ms=lib_ms, shapes=[sh])
     print(f"[kernel] kv_append (T,H,D,B)=({t_pool},{hkv},{d},{batch}) "
           f"live={n_live} max_abs_err={err} ms={ms:.4f} plain_ms="
           f"{plain_ms:.4f} bound_ms={bms:.2e} ({by}) library_ms={lib_ms:.4f}"
-          f" (index_copy_); per call with host overhead: {call:.4f} / "
+          f" (index_copy_) {shares(sh)}; per call with host overhead: {call:.4f} / "
           f"plain {plain_call:.4f} / library {lib_call:.4f}", flush=True)
 
     # kv_chunk_copy: a 64-slot tick with three class-overflow moves into
@@ -420,15 +445,17 @@ def serving_kernels(torch, dev, cyc, results) -> None:
         scratch, *mv, max_copy_tokens=w_max), cyc, calls=2)
     lib_ms, lib_call = time_ms(torch, lambda: scratch.index_copy_(
         0, dst_idx, scratch.index_select(0, src_idx)), cyc)
+    sh = shape_entry("tick", (t_pool, hkv, d, batch, w_max), ms, bms, lib_ms)
     results["kv_chunk_copy"] = dict(
         route="cuda", source="src/repro_torch/csrc/kv_scatter.cu",
         replaces="src/repro/kernels/kv_scatter.py:111", max_abs_err=err,
         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-        library_ms=lib_ms)
+        library_ms=lib_ms, shapes=[sh])
     print(f"[kernel] kv_chunk_copy (T,H,D,M,W)=({t_pool},{hkv},{d},{batch},"
           f"{w_max}) moved={moved} rows max_abs_err={err} ms={ms:.4f} "
           f"plain_ms={plain_ms:.4f} bound_ms={bms:.2e} ({by}) library_ms="
-          f"{lib_ms:.4f} (index_select + index_copy_); per call with host "
+          f"{lib_ms:.4f} (index_select + index_copy_) {shares(sh)}; per "
+          f"call with host "
           f"overhead: {call:.4f} / plain {plain_call:.4f} / library "
           f"{lib_call:.4f}", flush=True)
     del pool, scratch
@@ -451,6 +478,22 @@ def serving_kernels(torch, dev, cyc, results) -> None:
                              slab_decode_attention_window_ref(
                                  *a_args, max_chunk_tokens=w_max),
                              exact=False)
+        # a sequence's bits do not depend on the batch it is in: alone,
+        # and in the batch reversed, it gets the batched bits
+        for i in (0, 1, 2, batch - 1):
+            alone = ops.slab_decode_attention(
+                q[i:i + 1].contiguous(), kp, vp, starts[i:i + 1].contiguous(),
+                lens_t[i:i + 1].contiguous(), max_chunk_tokens=w_max)
+            check(torch.equal(alone[0], got[i]),
+                  f"slab_decode_attention[{label}]: sequence {i} alone "
+                  "differs from its bits in the batch")
+        rev = torch.arange(batch - 1, -1, -1, device=dev)
+        flipped = ops.slab_decode_attention(
+            q[rev].contiguous(), kp, vp, starts[rev].contiguous(),
+            lens_t[rev].contiguous(), max_chunk_tokens=w_max)
+        check(torch.equal(flipped, got[rev]),
+              f"slab_decode_attention[{label}]: a reordered batch changes "
+              "the bits")
         n_tok = int(lens.sum())
         bms, by = bound(2 * q.numel() * 4 + 2 * n_tok * hkv * d * 4
                         + 8 * batch, 4 * n_tok * hkv * g * d)
@@ -474,13 +517,17 @@ def serving_kernels(torch, dev, cyc, results) -> None:
         lib_ms, lib_call = time_ms(torch, lambda: F.scaled_dot_product_attention(
             q4, kg, vg, attn_mask=mask), cyc)
         del kg, vg
+        sh = shape_entry(label, (batch, hkv * g, hkv, d, w_max), ms, bms,
+                         lib_ms)
         att[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bms, bound_by=by, library_ms=lib_ms)
+                          bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                          shape=sh)
         print(f"[kernel] slab_decode_attention {label} (B,Hq,Hkv,D,W)="
               f"({batch},{hkv * g},{hkv},{d},{w_max}) tokens={n_tok} "
               f"max_abs_err={err} ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"bound_ms={bms:.2e} ({by}) library_ms={lib_ms:.4f} (SDPA "
-              f"over gathered windows, max abs diff {sdpa_err:.1e}); per "
+              f"over gathered windows, max abs diff {sdpa_err:.1e}) "
+              f"{shares(sh)}; alone and reordered == batched bits; per "
               f"call with host overhead: "
               f"{call:.4f} / plain {plain_call:.4f} / library "
               f"{lib_call:.4f}", flush=True)
@@ -488,7 +535,8 @@ def serving_kernels(torch, dev, cyc, results) -> None:
         att["mixtral"], route="cuda",
         source="src/repro_torch/csrc/slab_attention.cu",
         replaces="src/repro/kernels/slab_attention.py:84",
-        max_abs_err=max(v["max_abs_err"] for v in att.values()))
+        max_abs_err=max(v["max_abs_err"] for v in att.values()),
+        shapes=[v["shape"] for v in att.values()])
 
 
 def build_fleet_arbiter(n: int, *, fleet: bool, device: bool = False,
@@ -819,18 +867,21 @@ def main() -> None:
         ms, call_ms = time_ms(torch, lambda: ops.waste_eval(*args), cyc)
         plain_ms, plain_call = time_ms(torch, lambda: waste_eval_ref(*args),
                                        cyc)
+        sh = shape_entry(label, (b_, k_, s_), ms, bms)
         we[label] = dict(shape=(b_, k_, s_), max_abs_err=err, ms=ms,
-                         plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+                         plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                         entry=sh)
         print(f"[kernel] waste_eval {label} (B,K,S)={we[label]['shape']} "
               f"max_abs_err={err} rel={rel:.2e} ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} bound_ms={bms:.2e} ({by}) "
-              f"library_ms=null; per call with host overhead: "
+              f"library_ms=null {shares(sh)}; per call with host overhead: "
               f"{call_ms:.4f} / plain {plain_call:.4f}", flush=True)
     results["waste_eval"] = dict(
         we["hillclimb"], route="cuda",
         source="src/repro_torch/csrc/waste_eval.cu",
         replaces="src/repro/kernels/waste_eval.py:64", library_ms=None,
-        max_abs_err=max(v["max_abs_err"] for v in we.values()))
+        max_abs_err=max(v["max_abs_err"] for v in we.values()),
+        shapes=[v["entry"] for v in we.values()])
 
     # sketch_window at the fused window's shape (BINS = 8192, N = 512,
     # R = 10 batches per 5,000-item cadence), the per-batch one (R = 1)
@@ -863,6 +914,21 @@ def main() -> None:
         check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
               f"sketch_window[{label}] disagrees with its plain version")
         err = float((got - want).abs().max())
+        # one R-row launch == R one-row launches, bit for bit; at unit
+        # weights and decay 1 the kernel == its plain version, bit for bit
+        rowwise = state.clone()
+        for r in range(r_):
+            ops.sketch_window(rowwise, sizes[r:r + 1], weights[r:r + 1],
+                              lengths[r:r + 1], decay, totals[r:r + 1],
+                              out=rowwise)
+        check(torch.equal(rowwise, got), f"sketch_window[{label}]: the "
+              "window launch differs from its rows' launches")
+        ones, whole = torch.ones_like(totals), torch.round(state)
+        check(torch.equal(
+            ops.sketch_window(whole, sizes, weights, lengths, 1.0, ones),
+            sketch_window_ref(whole, sizes, weights, lengths, 1.0, ones)),
+            f"sketch_window[{label}] at decay 1 differs from its plain "
+            "version (must be bit for bit)")
         idx = bucketize(sizes.reshape(-1), 1, bins).to(torch.int64)
         n_items = r_ * n_
         w_flat = torch.pow(torch.tensor(decay, dtype=torch.float32,
@@ -883,20 +949,23 @@ def main() -> None:
         lib_ms, lib_call = time_ms(
             torch, lambda: scratch.mul_(d_all).index_add_(0, idx, w_flat),
             cyc)
+        sh = shape_entry(label, (bins, r_, n_), ms, bms, lib_ms)
         sw[label] = dict(shape=(bins, r_, n_), max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-                         bound_by=by)
+                         bound_by=by, entry=sh)
         print(f"[kernel] sketch_window {label} (BINS,R,N)="
               f"{sw[label]['shape']} max_abs_err={err} ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-              f"bound_ms={bms:.2e} ({by}); per call with host overhead: "
-              f"{call_ms:.4f} / plain {plain_call:.4f} / library "
-              f"{lib_call:.4f}", flush=True)
+              f"bound_ms={bms:.2e} ({by}) {shares(sh)}; == its rows' "
+              f"launches and, at decay 1, its plain version, bit for bit; "
+              f"per call with host overhead: {call_ms:.4f} / plain "
+              f"{plain_call:.4f} / library {lib_call:.4f}", flush=True)
     results["sketch_window"] = dict(
         sw["fused"], route="cuda",
         source="src/repro_torch/csrc/sketch_update.cu",
         replaces="src/repro/kernels/sketch_update.py:57",
-        max_abs_err=max(v["max_abs_err"] for v in sw.values()))
+        max_abs_err=max(v["max_abs_err"] for v in sw.values()),
+        shapes=[v["entry"] for v in sw.values()])
     serving_kernels(torch, dev, cyc, results)
     print("[kernels] comparison launches (not counted below): "
           + " ".join(f"{k}={v}" for k, v in read_launches(ops).items()),
@@ -1055,7 +1124,8 @@ def main() -> None:
                  "launches_by_phase": by_phase,
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                 "shapes": r["shapes"]}
         if name in DECODE_KERNELS:
             entry["graph_replays"] = replays
         kernels.append(entry)

@@ -3,11 +3,15 @@
 ``csrc/sketch_update.cu`` replaces the TPU kernel
 ``repro/kernels/sketch_update.py::sketch_update_pallas`` and its scanned
 form ``sketch_window_pallas``: one launch folds a whole observe window
-(R batches of raw sizes) into the dense sketch. Blocks own slices of
-bins and walk the rows in order, adding each bin's hits in item order,
-with no atomics. The per-batch ``sketch_update`` is the same kernel with
-one row of bucket ids that need no bucketizing. The source note says
-what bounds it.
+(R batches of raw sizes) into the dense sketch. Each block owns 64 bins
+dealt in a stride (bins k, k + G, ... of G blocks), so a hot range of
+neighbouring sizes spreads over the card; it compacts the window's hits
+on its bins into a list in item order (ballots and one scan in shared
+memory), and its 64 bin threads walk that list row by row, each adding
+its own bin's hits in item order after the row's decay. The work
+follows the hits and no float atomic is used. The per-batch
+``sketch_update`` is the same kernel with one row of bucket ids that
+need no bucketizing. The source note says what bounds it.
 
 The plain versions here restate the reference's scan row by row; the
 public, checked entry points are ``kernels/ops.py::sketch_update`` and

@@ -404,3 +404,217 @@ def test_decode_graph_replay_equals_eager(cuda):
     assert graph.n_decode_dispatches <= graph.ticks
     assert graph.n_decode_dispatches > 2
     assert launches == 2                 # the warm-up and the capture
+
+
+# -- the Hopper redesigns: sketch segmented sum, split-KV attention ------------
+
+def _sketch_both(state, sizes, weights, lengths, decay, totals, width=1):
+    """(kernel on the card, plain version on the CPU) of one window."""
+    want = sketch_window_ref(state, sizes, weights, lengths.clamp(
+        0, sizes.shape[1]), decay, totals, bucket_width=width)
+    got = ops.sketch_window(*(t.to("cuda") for t in (state, sizes, weights,
+                                                     lengths)),
+                            decay, totals.to("cuda"), bucket_width=width)
+    return got.cpu(), want
+
+
+@pytest.mark.parametrize("size", [7, -1, 10**9], ids=["one_bin", "negative",
+                                                      "past_bins"])
+@pytest.mark.parametrize("rows,n", [(1, 5000), (3, 9000), (40, 7)])
+def test_sketch_window_skewed_items(cuda, size, rows, n):
+    """Every item in one bin (more hits than a block's threads, a row
+    longer than a chunk, more rows than a chunk), every item negative
+    (skipped) or past the grid (clipped into the last bin): unit weights
+    and decay 1 bit for bit, decayed weights within 1e-5."""
+    rng = np.random.default_rng(rows + n)
+    state = torch.as_tensor(rng.random(8192), dtype=torch.float32)
+    sizes = torch.full((rows, n), size, dtype=torch.int32)
+    lengths = torch.full((rows,), n, dtype=torch.int32)
+    ones = torch.ones((rows, n))
+    got, want = _sketch_both(state, sizes, ones, lengths, 1.0,
+                             torch.ones(rows))
+    assert torch.equal(got, want)
+    weights = torch.as_tensor(rng.uniform(0.5, 2.0, (rows, n)),
+                              dtype=torch.float32)
+    decay = 0.5 ** (1 / 1000)
+    totals = torch.full((rows,), decay ** n, dtype=torch.float32)
+    got, want = _sketch_both(state, sizes, weights, lengths, decay, totals)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("bins", [1, 63, 64, 65, 100, 8191, (1 << 20) + 3])
+def test_sketch_window_ragged_bins(cuda, bins):
+    """BINS not a multiple of a block's 64 bins, with R = 0 (the state
+    comes back unchanged) and a window whose sizes cover the grid; past
+    2^20 bins the kernel finds a bin's block by integer division."""
+    state, sizes, weights, lengths = _window_inputs(bins, bins, 4, 300, 1,
+                                                    False)
+    got = ops.sketch_window(state.to(cuda), sizes[:0].to(cuda),
+                            weights[:0].to(cuda), lengths[:0].to(cuda), 0.9,
+                            torch.ones(0, device=cuda))
+    assert torch.equal(got.cpu(), state)
+    got, want = _sketch_both(state, sizes, weights, lengths, 1.0,
+                             torch.ones(4))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(10, 512), (2, 64), (1, 512), (33, 16)],
+                         ids=["fused", "gate", "per_batch", "many_rows"])
+def test_sketch_window_equals_row_launches_on_paper_sizes(cuda, shape):
+    """The main path's shapes on the paper's skewed sizes: one R-row
+    launch gives the bits of R one-row launches, and the plain version's
+    within 1e-5 (bit for bit at unit weights and decay 1)."""
+    rows, n = shape
+    sizes = torch.as_tensor(phase_shift_traffic(
+        PAPER_WORKLOADS[0], PAPER_WORKLOADS[2], n_items=rows * n,
+        seed=7).reshape(rows, n), dtype=torch.int32)
+    lengths = torch.full((rows,), n, dtype=torch.int32)
+    lengths[-1] = n - 3                          # a short last batch
+    decay = 0.5 ** (1 / 10_000)
+    totals = torch.as_tensor([decay ** int(x) for x in lengths],
+                             dtype=torch.float32)
+    state = torch.as_tensor(np.random.default_rng(1).random(8192) * 5,
+                            dtype=torch.float32)
+    weights = torch.ones((rows, n))
+    got, want = _sketch_both(state, sizes, weights, lengths, decay, totals)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    card = [t.to(cuda) for t in (state, sizes, weights, lengths, totals)]
+    rowwise = card[0].clone()
+    for r in range(rows):
+        ops.sketch_window(rowwise, card[1][r:r + 1], card[2][r:r + 1],
+                          card[3][r:r + 1], decay, card[4][r:r + 1],
+                          out=rowwise)
+    assert torch.equal(rowwise.cpu(), got)
+    unit, plain = _sketch_both(state, sizes, weights, lengths, 1.0,
+                               torch.ones(rows))
+    assert torch.equal(unit, plain)
+
+
+def test_sketch_update_out_of_grid_ids_skipped(cuda):
+    """The prebucketed entry: ids past BINS and negative ids add nothing,
+    one hot id takes every other hit, bit for bit at unit weights."""
+    ids = np.full(3000, 70, np.int32)
+    ids[::3] = 8192
+    ids[1::7] = -5
+    state = torch.zeros(8192)
+    idx = torch.as_tensor(ids)
+    w = torch.ones(3000)
+    want = sketch_update_ref(state, idx, w, 1.0)
+    got = ops.sketch_update(state.to(cuda), idx.to(cuda), w.to(cuda), 1.0)
+    assert torch.equal(got.cpu(), want)
+    assert float(got.sum()) == float((ids == 70).sum())
+
+
+def _attention_inputs(seed, lens, hkv, g, d, chunk):
+    rng = np.random.default_rng(seed)
+    b = len(lens)
+    t = b * chunk + BLOCK_T
+    mk = lambda *s: torch.as_tensor(rng.normal(size=s), dtype=torch.float32)
+    return (mk(b, hkv * g, d), mk(t, hkv, d), mk(t, hkv, d),
+            torch.as_tensor(np.arange(b) * chunk, dtype=torch.int32),
+            torch.as_tensor(np.asarray(lens, np.int32)))
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+def test_attention_split_edges(cuda, d, g):
+    """Lengths at the split edges (split - 1, split, split + 1, two
+    splits +- 1, a tile's edges, the window) against the plain
+    version."""
+    chunk = 1024
+    lens = [127, 128, 129, 255, 256, 257, 31, 32, 33, 1, chunk]
+    args = _attention_inputs(d * g, lens, 2, g, d, chunk)
+    want = slab_decode_attention_window_ref(*args, max_chunk_tokens=chunk)
+    got = ops.slab_decode_attention(*(a.to(cuda) for a in args),
+                                    max_chunk_tokens=chunk)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("batch", [64, 128])
+def test_attention_bits_do_not_depend_on_the_batch(cuda, batch):
+    """Each sequence alone gives the bits it gets in a batch of 64 or
+    128, sequences spanning up to 16 splits included."""
+    chunk = 1024
+    rng = np.random.default_rng(batch)
+    lens = np.clip(rng.lognormal(5.0, 0.9, batch), 0, chunk).astype(np.int32)
+    lens[:4] = (chunk, 0, 64, 65)
+    args = [a.to(cuda) for a in _attention_inputs(3, lens, 8, 4, 128, chunk)]
+    full = ops.slab_decode_attention(*args, max_chunk_tokens=chunk)
+    q, k, v, starts, ln = args
+    for i in list(range(6)) + [batch - 1]:
+        alone = ops.slab_decode_attention(
+            q[i:i + 1].contiguous(), k, v, starts[i:i + 1].contiguous(),
+            ln[i:i + 1].contiguous(), max_chunk_tokens=chunk)
+        assert torch.equal(alone[0], full[i]), (i, int(lens[i]))
+    # the same sequences in another order and beside other neighbours
+    perm = torch.as_tensor(rng.permutation(batch), device=cuda)
+    shuffled = ops.slab_decode_attention(
+        q[perm].contiguous(), k, v, starts[perm].contiguous(),
+        ln[perm].contiguous(), max_chunk_tokens=chunk)
+    assert torch.equal(shuffled, full[perm])
+
+
+@pytest.mark.parametrize("d,offset", [(3, 0), (17, 0), (100, 0), (128, 1)],
+                         ids=["d3", "d17", "d100", "misaligned"])
+def test_attention_scalar_copy_path(cuda, d, offset):
+    """Rows that are not whole float4s (or pools that do not start on 16
+    bytes) take the 4-byte copies: still the plain version's result."""
+    chunk = 256
+    q, k, v, starts, ln = _attention_inputs(d, [0, 1, 64, 65, 200, 256],
+                                            2, 4, d, chunk)
+    want = slab_decode_attention_window_ref(q, k, v, starts, ln,
+                                            max_chunk_tokens=chunk)
+    if offset:   # pools that start one float past an aligned address
+        big = torch.zeros(k.numel() + offset, device=cuda)
+        kc = big[offset:].view(k.shape)
+        kc.copy_(k)
+        big_v = torch.zeros(v.numel() + offset, device=cuda)
+        vc = big_v[offset:].view(v.shape)
+        vc.copy_(v)
+        assert kc.data_ptr() % 16 and vc.data_ptr() % 16
+    else:
+        kc, vc = k.to(cuda), v.to(cuda)
+    got = ops.slab_decode_attention(q.to(cuda), kc, vc, starts.to(cuda),
+                                    ln.to(cuda), max_chunk_tokens=chunk)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_attention_long_window_wider_splits(cuda):
+    """A window past 64 splits of 128 tokens takes 256-token splits:
+    still the plain version's result, lengths at the new edges."""
+    chunk = 9000
+    lens = [8193, 255, 256, 257, chunk]
+    args = _attention_inputs(9, lens, 1, 2, 64, chunk)
+    want = slab_decode_attention_window_ref(*args, max_chunk_tokens=chunk)
+    got = ops.slab_decode_attention(*(a.to(cuda) for a in args),
+                                    max_chunk_tokens=chunk)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_attention_in_a_cuda_graph(cuda):
+    """Captured once (its split scratch comes from the graph's pool),
+    replayed on new inputs: the eager call's bits, every replay."""
+    chunk = 1024
+    lens = [1000, 0, 65, 300]
+    q, k, v, starts, ln = (a.to(cuda) for a in _attention_inputs(
+        11, lens, 8, 4, 128, chunk))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.slab_decode_attention(q, k, v, starts, ln,
+                                  max_chunk_tokens=chunk)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.slab_decode_attention(q, k, v, starts, ln,
+                                        max_chunk_tokens=chunk)
+    rng = np.random.default_rng(12)
+    for _ in range(3):
+        q.copy_(torch.as_tensor(rng.normal(size=q.shape),
+                                dtype=torch.float32))
+        ln.copy_(torch.as_tensor(rng.integers(0, chunk + 1, len(lens)),
+                                 dtype=torch.int32))
+        graph.replay()
+        eager = ops.slab_decode_attention(q, k, v, starts, ln,
+                                          max_chunk_tokens=chunk)
+        assert torch.equal(out, eager)

@@ -193,3 +193,42 @@ def test_attention_checks_arguments():
         ops.slab_decode_attention(torch.zeros((1, 1, 512)), big, big,
                                   _i32([0]), _i32([1]),
                                   max_chunk_tokens=BLOCK_T)
+
+
+@pytest.mark.parametrize("w", [0, 1, 63, 64, 65, 1024, 4096, 4097, 70_000])
+def test_attention_split_layout(w):
+    """The decode kernel's splits depend on the window alone: whole
+    32-token tiles, at most MAX_SPLITS of them covering the window, the
+    64-token split whenever it fits, and scratch rows that do not depend
+    on the batch."""
+    from repro_torch.kernels import slab_attention as sa
+    chunk, n_splits, workers = sa.split_layout(w)
+    assert chunk % 32 == 0 and chunk % sa.SPLIT_TOKENS == 0
+    assert 0 <= n_splits <= sa.MAX_SPLITS
+    assert n_splits * chunk >= w and (n_splits - 1) * chunk < max(w, 1)
+    if w <= sa.SPLIT_TOKENS * sa.MAX_SPLITS:
+        assert chunk == sa.SPLIT_TOKENS
+    assert 1 <= workers <= sa.WORKERS and workers <= max(n_splits, 1)
+    for b in (1, 64, 128):
+        acc, ml = sa.scratch_shapes(b, 32, 128, w)
+        assert acc == (b, 32, n_splits, 128) and ml == (b, 32, n_splits, 2)
+
+
+@pytest.mark.parametrize("g", [1, 2])
+def test_attention_split_edges_match_reference(g):
+    """Lengths at the kernel's split edges (0, 1, split - 1, split,
+    split + 1, two splits and the window) on the plain version against
+    the reference's window oracle and its interpret-mode kernel."""
+    chunk = 4 * BLOCK_T
+    lens = [0, 1, 63, 64, 65, 128, 129, chunk]
+    q, k, v, starts, ln = _attention_case(lens, chunk, g, seed=5)
+    jargs = tuple(map(jnp.asarray, (q, k, v, starts)))
+    win = np.asarray(slab_decode_attention_window_ref(
+        *jargs, jnp.asarray(ln), max_chunk_tokens=chunk))
+    pallas = np.asarray(slab_decode_attention_pallas(
+        *jargs, jnp.asarray(ln), max_chunk_tokens=chunk, interpret=True))
+    got = ops.slab_decode_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        _i32(starts), _i32(ln), max_chunk_tokens=chunk)
+    np.testing.assert_allclose(got.numpy(), win, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), pallas, rtol=2e-5, atol=2e-5)
